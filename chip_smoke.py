@@ -6,23 +6,35 @@
    (one ``nvcc`` per source, all started together) and prints the build
    time and the compiler's register / spill lines;
 2. holds each kernel against its plain PyTorch version at the main path's
-   shapes (a 64-slice chunk of 192x208 features from the trained
-   ``FCN_sa`` encoder) in float32 and bfloat16, and times the kernel, the
-   plain version and the cuDNN encoder with CUDA events;
+   shapes and times the kernel, the plain version and a library yardstick
+   with CUDA events:
+   - the fused FCN head on a 64-slice chunk of 192x208 features from the
+     trained ``FCN_sa`` encoder, float32 and bfloat16;
+   - the B-spline lattice → field synthesis and its adjoint at B = 150
+     registration pairs, at each pyramid level of ``RegConfig.
+     cine_2d_motion()`` (24^2 / 6x6, 48^2 / 8x8, 96^2 / 13x13, spacing 10)
+     and the coarse-lattice densify (6x6 at 96^2, spacing 40);
 3. drives the main path as a user would: writes 3 phantom subjects
    (192, 208, 10, 50) int16, runs the port's SA deploy
    (``infer.deploy.deploy_dataset``) and ventricular-volume evaluation on
-   the card, checks that every kernel of the path launched, prints
-   per-subject cine wall and device time, Dice against the phantom truth
-   and LVEDV/LVESV/LVEF, and compares the card's labels with the port's
-   CPU path on a reduced cine;
-4. prints the card's name and power limit, one JSON line of kernel
+   the card, checks that the fused head launched, prints per-subject cine
+   wall and device time, Dice against the phantom truth and
+   LVEDV/LVESV/LVEF, and compares the card's labels with the port's CPU
+   path on a reduced cine;
+4. on the deployed segmentations, runs the wall-thickness CLI and the SA
+   strain driver (``RegConfig.cine_2d_motion()``, warp-Dice on) for every
+   subject on the card, checks that both B-spline kernels launched,
+   prints per subject the strain wall and device span, pairs, crop,
+   global Ecc/Err and warp-Dice, and compares the card's strain tables
+   with the port's CPU path on a reduced subject (6 frames);
+5. prints the card's name and power limit, one JSON line of kernel
    figures, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card (``torch.cuda.is_available()`` false) it exits 1 at once.  The
 weights are the repo's trained ``tests/fixtures/bench_weights/FCN_sa.npz``
-(full widths, 5 levels); the phantoms come from a fixed seed.
+(full widths, 5 levels); the phantoms and the kernels' test inputs come
+from fixed seeds.
 """
 
 from __future__ import annotations
@@ -47,6 +59,15 @@ N_SUBJECTS = 3
 PEAK_F32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3
 KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# B-spline synthesis: at most 20 float32 FMAs per value in another order;
+# the adjoint sums up to (4s)^2 products per control
+FIELD_ATOL, ADJOINT_ATOL = 1e-5, 1e-4
+N_PAIRS = 150                        # 3 slices x 50 frames, inverse-consistent
+# (image side, lattice side, spacing) of every synthesis on the strain path
+BSPLINE_CASES = [(24, 6, 10), (48, 8, 10), (96, 13, 10), (96, 6, 40)]
+# card vs CPU strain on a reduced subject: the bounds the CPU parity tests
+# hold the port to against the JAX package (tests/test_torch_strain.py)
+STRAIN_SEGMENT_ATOL, STRAIN_GLOBAL_ATOL, DICE_ATOL = 2.0, 0.5, 0.005
 
 
 def card_line() -> str:
@@ -57,7 +78,8 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call on the card (CUDA events)."""
+    """Mean milliseconds per call on the card (CUDA events around a run of
+    eager calls: includes any gap while the host issues the next one)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -66,6 +88,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Mean device milliseconds per call: up to ``iters`` calls (fewer for
+    a call slower than 1 ms) captured in one CUDA graph and replayed, so
+    host launch time leaves no gaps between them (CUDA events around the
+    replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+    end.synchronize()
+    iters = max(3, min(iters, int(iters / max(start.elapsed_time(end), 1e-3))))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -132,7 +186,7 @@ def dice(a, b, label):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/3] build", flush=True)
+    print("[1/5] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -167,7 +221,7 @@ def head_bound(feats, n_class, same_dim, fc):
 
 
 def kernel_phase(card, fh, tfcn, model):
-    print("[2/3] kernels vs plain versions at the main path's shapes",
+    print("[2/5] fused head vs its plain version at the main path's shapes",
           flush=True)
     X, Y = MAIN_SHAPE[:2]
     image, _ = sax_phantom(X, Y, 2, CHUNK // 2, r_lv=0.1 * X, wall=0.039 * X,
@@ -212,8 +266,120 @@ def kernel_phase(card, fh, tfcn, model):
     return result[torch.float32]
 
 
+def bspline_taps(tb, spacing: int, device) -> torch.Tensor:
+    """(2, 1, 4s-1, 4s-1) separable cubic B-spline taps for the yardstick
+    convolutions: tap j is B((j - (2s-1))/s) per axis."""
+    j = np.arange(4 * spacing - 1)
+    k = tb._cubic_bspline_np((j - (2 * spacing - 1)) / spacing)
+    k = torch.from_numpy(k.astype(np.float32)).to(device)
+    return (k[:, None] * k[None, :])[None, None].repeat(2, 1, 1, 1)
+
+
+def bspline_bounds(B, C, X, s):
+    """Least time of the forward and the adjoint on this card for these
+    inputs: bytes (each input read once, each output written once) over
+    the memory rate against the kernel's float32 FMAs (2 FLOP each) over
+    the float32 peak.  Returns {name: (ms, 'bytes' | 'operations')}."""
+    lat, field = B * C * C * 2 * 4, B * X * X * 2 * 4
+    table = 4 * s * 4
+    # forward: per column and run of s rows, 4 x 4 FMAs; then 4 per value
+    fwd_flop = 2 * B * 2 * (X * -(-X // s) * 16 + X * X * 4)
+    # adjoint: each control's support, rows then columns (clipped)
+    sup = [min(X, (i + 1) * s) - max(0, (i - 3) * s) for i in range(C)]
+    sup = [max(n, 0) for n in sup]
+    adj_flop = 2 * B * 2 * (sum(sup) * X + C * sum(sup))
+    out = {}
+    for name, nbytes, flop in (("bspline_field", lat + field + table,
+                                fwd_flop),
+                               ("bspline_field_adjoint", field + lat + table,
+                                adj_flop)):
+        t_b, t_o = nbytes / PEAK_BYTES, flop / PEAK_F32_FLOPS
+        out[name] = (1e3 * max(t_b, t_o),
+                     "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def bspline_phase(card, tb, bf):
+    """The B-spline kernels against their plain versions at every shape of
+    the strain path; times at the finest level go into the kernels line."""
+    import torch.nn.functional as F
+
+    print("[2/5] B-spline synthesis and adjoint vs their plain versions, "
+          f"B = {N_PAIRS}", flush=True)
+    rng = np.random.RandomState(11)
+    result = {}
+    for X, C, s in BSPLINE_CASES:
+        c = torch.from_numpy(rng.randn(N_PAIRS, C, C, 2).astype(
+            np.float32)).cuda()
+        G = torch.from_numpy(rng.randn(N_PAIRS, X, X, 2).astype(
+            np.float32)).cuda()
+        cr = c.clone().requires_grad_(True)
+        field = bf.bspline_field(cr, (X, X), s)
+        field.backward(G)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            plain = tb.bspline_dense_field_plain(c, (X, X), s)
+            plain_adj = tb.bspline_adjoint_plain(G, (C, C), s)
+        err = (field.detach() - plain).abs().max().item()
+        err_adj = (cr.grad - plain_adj).abs().max().item()
+        if not err <= FIELD_ATOL or not err_adj <= ADJOINT_ATOL:
+            raise AssertionError(
+                f"bspline at {X}^2/{C}x{C}/s{s}: max |kernel - plain| "
+                f"{err} (atol {FIELD_ATOL}), adjoint {err_adj} "
+                f"(atol {ADJOINT_ATOL})")
+        W = bspline_taps(tb, s, c.device)
+        c_nchw = c.permute(0, 3, 1, 2).contiguous()
+        G_nchw = G.permute(0, 3, 1, 2).contiguous()
+        lo = 3 * s - 1
+
+        def fwd():
+            return bf.bspline_field(c, (X, X), s)
+
+        def adj():
+            return bf.bspline_field_adjoint(G, (C, C), s)
+
+        def lib_fwd():
+            return F.conv_transpose2d(c_nchw, W, stride=s,
+                                      groups=2)[:, :, lo:lo + X, lo:lo + X]
+
+        def lib_adj():
+            return F.conv2d(G_nchw, W, stride=s, groups=2,
+                            padding=4 * s - 1)[:, :, 1:1 + C, 1:1 + C]
+
+        with torch.no_grad():
+            lib_err = (lib_fwd().permute(0, 2, 3, 1) - plain).abs().max()
+            lib_err_adj = (lib_adj().permute(0, 2, 3, 1)
+                           - plain_adj).abs().max()
+            times = {
+                "bspline_field": {
+                    "ms": graph_ms(fwd), "eager_ms": cuda_ms(fwd),
+                    "plain_ms": graph_ms(lambda: tb.bspline_dense_field_plain(
+                        c, (X, X), s)),
+                    "library_ms": graph_ms(lib_fwd), "max_abs_err": err},
+                "bspline_field_adjoint": {
+                    "ms": graph_ms(adj), "eager_ms": cuda_ms(adj),
+                    "plain_ms": graph_ms(lambda: tb.bspline_adjoint_plain(
+                        G, (C, C), s)),
+                    "library_ms": graph_ms(lib_adj),
+                    "max_abs_err": err_adj}}
+        bounds = bspline_bounds(N_PAIRS, C, X, s)
+        for name, t in times.items():
+            t["bound_ms"], t["bound_by"] = bounds[name]
+            print(f"  {name} {X}^2 lattice {C}x{C} s={s}: max |kernel - "
+                  f"plain| {t['max_abs_err']:.3e}; kernel {t['ms']:.5f} ms "
+                  f"(graph replay; eager {t['eager_ms']:.5f} ms), plain "
+                  f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
+                  f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}) "
+                  f"[{card}]")
+        print(f"  yardstick vs plain: conv_transpose2d {lib_err.item():.3e}, "
+              f"conv2d {lib_err_adj.item():.3e}")
+        if (X, C, s) == (96, 13, 10):
+            result = times
+    return result
+
+
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work):
-    print(f"[3/3] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/5] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -288,6 +454,183 @@ def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work):
     return launches
 
 
+def strain_tables(stem):
+    import pandas as pd
+
+    return {k: pd.read_csv(f"{stem}_{k}.csv", index_col=0)
+            for k in ("radial", "circum")}
+
+
+def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
+                 work):
+    """Wall thickness and SA strain on the deployed subjects, then the
+    card's strain against the port's CPU path on a reduced subject."""
+    print(f"[4/5] main path: wall thickness + SA strain "
+          f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
+          flush=True)
+    data_dir = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    cli_wt.main(["--data_dir", data_dir, "--output_csv",
+                 os.path.join(work, "wall_thickness.csv"), "--device",
+                 "cuda"])
+    wt = np.loadtxt(os.path.join(work, "wall_thickness.csv"), delimiter=",",
+                    skiprows=1, usecols=range(1, 18), ndmin=2)
+    print(f"  wall thickness CLI {time.perf_counter() - t0:.3f} s; global "
+          f"mean thickness {np.round(wt[:, -1], 4).tolist()} mm")
+    if wt.shape[0] != N_SUBJECTS or not np.all(np.isfinite(wt[:, -1])):
+        raise AssertionError(f"wall thickness rows {wt}")
+
+    cfg = register.RegConfig.cine_2d_motion()
+    bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
+    rows, t_path = [], time.perf_counter()
+    for subject in sorted(os.listdir(data_dir)):
+        subj = os.path.join(data_dir, subject)
+        motion = os.path.join(subj, "cine_motion")
+        os.makedirs(motion, exist_ok=True)
+        before = (bf.bspline_field.launches, bf.bspline_field.adjoint_launches)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        ctx = strain.start_sa_motion_dispatch(subj, motion, cfg,
+                                              eval_dice=True, device="cuda")
+        ev[1].record()
+        # the dispatch returns once its work is queued: what the card still
+        # had to do then is what the CLI's pipeline overlaps with the host
+        t_dispatch = time.perf_counter() - t0
+        ev[1].synchronize()
+        t_wait = time.perf_counter() - t0 - t_dispatch
+        dice = strain.finish_sa_motion(ctx, os.path.join(subj, "strain_sa"))
+        wall = time.perf_counter() - t0
+        device_ms = ev[0].elapsed_time(ev[1])
+        tab = strain_tables(os.path.join(subj, "strain_sa"))
+        ecc = tab["circum"].loc["Global"].min()
+        err = tab["radial"].loc["Global"].max()
+        d = dice.values.mean(axis=0)
+        n = (bf.bspline_field.launches - before[0],
+             bf.bspline_field.adjoint_launches - before[1])
+        pairs = len(ctx["selected"]) * ctx["T"]
+        crop_xy = (ctx["X"], ctx["Y"])
+        print(f"  subject {subject}: strain wall {wall:.4f} s (dispatch "
+              f"returned at {t_dispatch:.4f} s, then {t_wait:.4f} s of queued "
+              f"work), device span {device_ms:.4f} ms [{card}]; {pairs} "
+              f"pairs, crop {crop_xy} -> "
+              f"{strain.bucket_hw(*crop_xy)}; global Ecc {ecc:.4f} %, Err "
+              f"{err:.4f} %; warp-Dice LV {d[0]:.4f} Myo {d[1]:.4f}; "
+              f"bspline_field launches {n[0]}, adjoint {n[1]}")
+        values = np.concatenate([t.values.ravel() for t in tab.values()])
+        if not np.all(np.isfinite(values[~np.isnan(values)])) or not (
+                np.isfinite(ecc) and np.isfinite(err)):
+            raise AssertionError(f"subject {subject}: strain not finite")
+        if not d[0] >= 0.9:
+            raise AssertionError(f"subject {subject}: mean LV warp-Dice "
+                                 f"{d[0]} < 0.9")
+        rows.append((subject, wall, device_ms))
+    launches = {"bspline_field": bf.bspline_field.launches,
+                "bspline_field_adjoint": bf.bspline_field.adjoint_launches}
+    print(f"  strain path {time.perf_counter() - t_path:.2f} s; launches "
+          f"{launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the strain path never launched {name}")
+
+    # the last subject's device stages alone (CUDA events): the batched
+    # registration, then densify + invert + compose + blend
+    seg_ed = np.array(nifti.load(os.path.join(subj, "seg_sa_ED.nii.gz"))
+                      .dataobj)
+    seg_ed[seg_ed == 3] = 0
+    x1, x2, y1, y2, z1, z2 = crop.foreground_bbox(seg_ed, 20)
+    sa = np.asarray(nifti.load(os.path.join(subj, "sa.nii.gz")).dataobj)
+    sa = sa[x1:x2, y1:y2, z1:z2].astype(np.float32)
+    frames = np.stack([np.transpose(sa[:, :, z], (2, 0, 1))
+                       for z in ctx["selected"]])
+    Xp, Yp = strain.bucket_hw(*frames.shape[2:])
+    frames = np.pad(frames, ((0, 0), (0, 0), (0, Xp - frames.shape[2]),
+                             (0, Yp - frames.shape[3])))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    reg = register.make_register_batch((Xp, Yp), cfg, device="cuda")
+
+    def timed_register(targets, sources):
+        out = reg(targets, sources)
+        ev[1].record()
+        return out
+
+    torch.cuda.synchronize()
+    ev[0].record()
+    strain.track_multi_slice_fields(frames, cfg, register_batch=timed_register,
+                                    device="cuda")
+    ev[2].record()
+    ev[2].synchronize()
+    span = ev[0].elapsed_time(ev[2])
+    print(f"  one subject's device stages: registration of "
+          f"{frames.shape[0] * frames.shape[1]} pairs at {(Xp, Yp)} "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms, densify + invert + compose "
+          f"+ blend {ev[1].elapsed_time(ev[2]):.3f} ms [{card}]")
+    # the same again under torch.profiler: kernels launched and the time
+    # the card was busy with them, against the span of the unprofiled run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        strain.track_multi_slice_fields(frames, cfg, register_batch=reg,
+                                        device="cuda")
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    if busy > 0:
+        print(f"  profiled: {n_kern} device ops (kernels, copies), busy "
+              f"{busy:.3f} ms of the "
+              f"{span:.3f} ms span ({100 * (1 - busy / span):.1f} % idle) "
+              f"[{card}]")
+    else:
+        print("  profiled: no device time recorded (device busy share not "
+              "measured)")
+
+    subj = os.path.join(data_dir, rows[0][0])
+
+    # the card against the port's CPU path on a reduced subject: the first
+    # subject's cine cut to 6 frames
+    red = os.path.join(work, "reduced", rows[0][0])
+    os.makedirs(red)
+    for name in ("sa", "seg_sa"):
+        src = nifti.load(os.path.join(subj, f"{name}.nii.gz"))
+        arr = np.asarray(src.dataobj)[..., :6]
+        hdr = src.header.copy()
+        hdr["dim"][4] = 6
+        nifti.save(nifti.Nifti1Image(arr, src.affine, hdr),
+                   os.path.join(red, f"{name}.nii.gz"))
+    shutil.copy(os.path.join(subj, "seg_sa_ED.nii.gz"), red)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        motion = os.path.join(red, f"motion_{dev}")
+        os.makedirs(motion)
+        t0 = time.perf_counter()
+        dice = strain.cine_2d_sa_motion_and_strain_analysis(
+            red, motion, os.path.join(red, f"strain_{dev}"), cfg,
+            eval_dice=True, device=dev)
+        out[dev] = (strain_tables(os.path.join(red, f"strain_{dev}")),
+                    dice.values, time.perf_counter() - t0)
+    seg_diff = max(np.nanmax(np.abs(out["cuda"][0][k].values
+                                    - out["cpu"][0][k].values))
+                   for k in ("radial", "circum"))
+    glob_diff = max(np.abs(out["cuda"][0][k].loc["Global"].values
+                           - out["cpu"][0][k].loc["Global"].values).max()
+                    for k in ("radial", "circum"))
+    dice_diff = np.abs(out["cuda"][1] - out["cpu"][1]).max()
+    print(f"  card vs CPU strain on a (192, 208, 10, 6) subject: per-segment "
+          f"{seg_diff:.4f} pp (bound {STRAIN_SEGMENT_ATOL}), global "
+          f"{glob_diff:.4f} pp (bound {STRAIN_GLOBAL_ATOL}), warp-Dice "
+          f"{dice_diff:.5f} (bound {DICE_ATOL}); card {out['cuda'][2]:.3f} "
+          f"s, CPU {out['cpu'][2]:.3f} s")
+    if not (seg_diff <= STRAIN_SEGMENT_ATOL and glob_diff <= STRAIN_GLOBAL_ATOL
+            and dice_diff <= DICE_ATOL):
+        raise AssertionError("card and CPU strain disagree")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -295,12 +638,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from ukbb_cardiac_tpu_torch import kernels, resolve_device
+    from ukbb_cardiac_tpu_torch.cli import eval_wall_thickness
     from ukbb_cardiac_tpu_torch.infer import deploy
     from ukbb_cardiac_tpu_torch.infer import engine as engine_mod
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
     from ukbb_cardiac_tpu_torch.models import fused_head as fh
-    from ukbb_cardiac_tpu_torch.phenotype import ventricle
+    from ukbb_cardiac_tpu_torch.ops import crop
+    from ukbb_cardiac_tpu_torch.phenotype import strain, ventricle
+    from ukbb_cardiac_tpu_torch.reg import bspline as tb
+    from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
+    from ukbb_cardiac_tpu_torch.reg import register
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -310,25 +658,38 @@ def main() -> int:
     build_phase(kernels)
     model = deploy.load_segmentation_model(BUNDLE, "cuda")
     head = kernel_phase(card, fh, tfcn, model)
+    spline = bspline_phase(card, tb, bf)
     work = tempfile.mkdtemp(prefix="chip_smoke_",
                             dir=os.path.join(ROOT, "build"))
     try:
         launches = main_path_phase(card, fh, nifti, deploy, ventricle,
                                    engine_mod, work)
+        launches.update(strain_phase(card, nifti, crop, bf, strain, register,
+                                     eval_wall_thickness, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"[5/5] total {time.perf_counter() - t_start:.1f} s")
 
-    line = {"kernels": [{
+    entries = [{
         "name": "fused_head", "route": "cuda",
         "source": "ukbb_cardiac_tpu_torch/csrc/fused_head.cu",
         "replaces": "ukbb_cardiac_tpu/models/pallas_head.py:178",
         "launches": launches["fused_head"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None}]}
+        "bound_by": head["bound_by"], "library_ms": None}]
+    for name in ("bspline_field", "bspline_field_adjoint"):
+        t = spline[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ukbb_cardiac_tpu_torch/csrc/bspline_field.cu",
+            "replaces": "ukbb_cardiac_tpu/reg/pallas_bspline.py:84",
+            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(card_line())
-    print(json.dumps(line))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,233 @@
+"""The port's B-spline FFD synthesis (``reg/bspline.py``,
+``reg/bspline_field.py``) against the JAX package's, and the CUDA
+kernel's host-side layout.
+
+The Pallas kernel runs under its interpreter on the CPU, as
+``tests/test_pallas.py`` runs it.  The CUDA kernel cannot run here: its
+weight table and indexing are checked by a numpy model of the kernel's
+loops, and the kernel itself against the plain version by
+``tests/test_torch_card.py`` and ``chip_smoke.py`` on a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ukbb_cardiac_tpu.reg import bspline as jb
+from ukbb_cardiac_tpu.reg.pallas_bspline import pallas_dense_field
+from ukbb_cardiac_tpu_torch.reg import bspline as tb
+from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
+
+torch.set_num_threads(1)
+
+# The Pallas kernel's own bound against the conv synthesis
+# (tests/test_pallas.py); the plain version differs from both only in the
+# order of at most 16 float32 products per value.
+SYNTH_ATOL = 2e-5
+# The adjoint sums up to (4s)^2 float32 products per control; a float64
+# check put one float32 summation order 9e-6 from exact at s = 40, 96^2.
+ADJOINT_ATOL = 1e-4
+
+SHAPES = [((96, 96), 8), ((192, 208), 10), ((100, 120), 20)]
+LATTICE = {"covering": 0, "shorter": -2, "longer": 3}
+
+
+def _lattice(shape, spacing, delta, batch=2, seed=0):
+    Cx, Cy = jb.lattice_shape(shape, spacing)
+    return np.random.RandomState(seed).randn(
+        batch, Cx + delta, Cy + delta, 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("lattice", list(LATTICE))
+@pytest.mark.parametrize("shape,spacing", SHAPES)
+def test_plain_matches_conv_and_pallas(shape, spacing, lattice):
+    c = _lattice(shape, spacing, LATTICE[lattice])
+    got = tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
+                                       spacing).numpy()
+    for i in range(c.shape[0]):
+        conv = np.asarray(jb.bspline_dense_field(jnp.asarray(c[i]), shape,
+                                                 spacing))
+        pallas = np.asarray(pallas_dense_field(jnp.asarray(c[i]), shape,
+                                               spacing, tile=80,
+                                               interpret=True))
+        np.testing.assert_allclose(got[i], conv, atol=SYNTH_ATOL, rtol=0)
+        np.testing.assert_allclose(got[i], pallas, atol=SYNTH_ATOL, rtol=0)
+
+
+def _jax_grad(c, G, shape, spacing):
+    return np.stack([np.asarray(jax.grad(
+        lambda cc, g=g: jnp.sum(jb.bspline_dense_field(cc, shape, spacing)
+                                * g))(jnp.asarray(ci)))
+        for ci, g in zip(c, G)])
+
+
+@pytest.mark.parametrize("lattice", list(LATTICE))
+@pytest.mark.parametrize("shape,spacing", SHAPES + [((96, 96), 40)])
+def test_adjoint_matches_jax_grad(shape, spacing, lattice):
+    c = _lattice(shape, spacing, LATTICE[lattice], seed=1)
+    G = np.random.RandomState(2).randn(c.shape[0], *shape, 2).astype(
+        np.float32)
+    ref = _jax_grad(c, G, shape, spacing)
+    plain = tb.bspline_adjoint_plain(torch.from_numpy(G), c.shape[1:3],
+                                     spacing).numpy()
+    ct = torch.from_numpy(c).requires_grad_(True)
+    (bspline_field(ct, shape, spacing) * torch.from_numpy(G)).sum().backward()
+    np.testing.assert_allclose(plain, ref, atol=ADJOINT_ATOL, rtol=0)
+    np.testing.assert_allclose(ct.grad.numpy(), ref, atol=ADJOINT_ATOL,
+                               rtol=0)
+
+
+def test_public_function_keeps_jax_layouts():
+    """(Cx, Cy, 2) → (X, Y, 2) and (…, Cx, Cy, 2) → (…, X, Y, 2)."""
+    c = _lattice((40, 44), 6, 0, batch=6)
+    one = tb.bspline_dense_field(torch.from_numpy(c[0]), (40, 44), 6)
+    ref = np.asarray(jb.bspline_dense_field(jnp.asarray(c[0]), (40, 44), 6))
+    assert one.shape == (40, 44, 2)
+    np.testing.assert_allclose(one.numpy(), ref, atol=SYNTH_ATOL, rtol=0)
+    many = tb.bspline_dense_field(
+        torch.from_numpy(c.reshape(2, 3, *c.shape[1:])), (40, 44), 6)
+    assert many.shape == (2, 3, 40, 44, 2)
+    np.testing.assert_array_equal(many[0, 0].numpy(), one.numpy())
+
+
+@pytest.mark.parametrize("spacing", [1, 5, 8, 10, 20, 40])
+@pytest.mark.parametrize("extra", [-3, 0, 2])
+def test_weight_table_rebuilds_basis_matrix(spacing, extra):
+    """The kernel's (s, 4) residue table, indexed as the kernel indexes it
+    (control ⌊x/s⌋ + a, zero past the lattice), rebuilds basis_matrix
+    bit for bit, also for lattices shorter or longer than the covering
+    one."""
+    dim = 97
+    n = max(1, jb.lattice_shape((dim, dim), spacing)[0] + extra)
+    B = tb.basis_matrix(dim, spacing, n)
+    table = tb.residue_weights(spacing)
+    M = np.zeros_like(B)
+    for x in range(dim):
+        for a in range(4):
+            i = x // spacing + a
+            if i < n:
+                M[x, i] = table[x % spacing, a]
+    np.testing.assert_array_equal(M, B)
+    if extra == 0:
+        np.testing.assert_array_equal(B, jb.basis_matrix(dim, spacing))
+
+
+def _kernel_model(c, shape, s):
+    """numpy model of csrc/bspline_field.cu: field_kernel's thread for
+    column y and rows q*s .. q*s+s-1 (the 4 control rows q + a reduced
+    over their 4 columns once, then 4 products per pixel) and
+    adjoint_kernel's two passes (rows x of control i's support into a
+    (Y, 2) buffer, then the columns of control j's support), weights only
+    from the table."""
+    w = tb.residue_weights(s)
+    B, Cx, Cy, _ = c.shape
+    X, Y = shape
+    field = np.zeros((B, X, Y, 2), np.float32)
+    for y in range(Y):
+        qy = y // s
+        for q in range(-(-X // s)):
+            row = np.zeros((4, B, 2), np.float32)
+            for a in range(4):
+                if q + a >= Cx:
+                    continue
+                for k in range(4):
+                    if qy + k >= Cy:
+                        break
+                    row[a] += w[y % s, k] * c[:, q + a, qy + k]
+            for r in range(min(s, X - q * s)):
+                field[:, q * s + r, y] = sum(w[r, a] * row[a]
+                                             for a in range(4))
+    return field
+
+
+def _adjoint_model(G, lattice, s):
+    w = tb.residue_weights(s)
+    B, X, Y, _ = G.shape
+    Cx, Cy = lattice
+    out = np.zeros((B, Cx, Cy, 2), np.float32)
+    for i in range(Cx):
+        part = np.zeros((B, Y, 2), np.float32)
+        for x in range(max(0, (i - 3) * s), min(X, (i + 1) * s)):
+            part += w[x % s, i - x // s] * G[:, x]
+        for j in range(Cy):
+            for y in range(max(0, (j - 3) * s), min(Y, (j + 1) * s)):
+                out[:, i, j] += w[y % s, j - y // s] * part[:, y]
+    return out
+
+
+@pytest.mark.parametrize("shape,spacing,delta", [((23, 31), 5, 0),
+                                                 ((30, 26), 4, -2),
+                                                 ((24, 24), 10, 2)])
+def test_kernel_model_matches_plain(shape, spacing, delta):
+    c = _lattice(shape, spacing, delta, seed=3)
+    G = np.random.RandomState(4).randn(c.shape[0], *shape, 2).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        _kernel_model(c, shape, spacing),
+        tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
+                                     spacing).numpy(), atol=SYNTH_ATOL,
+        rtol=0)
+    np.testing.assert_allclose(
+        _adjoint_model(G, c.shape[1:3], spacing),
+        tb.bspline_adjoint_plain(torch.from_numpy(G), c.shape[1:3],
+                                 spacing).numpy(), atol=ADJOINT_ATOL, rtol=0)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    c = torch.from_numpy(_lattice((32, 40), 8, 0)).requires_grad_(True)
+    before = (bspline_field.launches, bspline_field.adjoint_launches)
+    out = bspline_field(c, (32, 40), 8)
+    out.sum().backward()
+    assert (bspline_field.launches, bspline_field.adjoint_launches) == before
+    torch.testing.assert_close(
+        out, tb.bspline_dense_field_plain(c.detach(), (32, 40), 8),
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        c.grad, tb.bspline_adjoint_plain(torch.ones(2, 32, 40, 2),
+                                         c.shape[1:3], 8), atol=0, rtol=0)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    c = torch.from_numpy(_lattice((32, 40), 8, 0))
+    with pytest.raises(TypeError):
+        bspline_field(c.double(), (32, 40), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        bspline_field(c.transpose(1, 2), (32, 40), 8)
+    with pytest.raises(ValueError):
+        bspline_field(c[0], (32, 40), 8)
+    with pytest.raises(ValueError):
+        bspline_field(c.to("meta"), (32, 40), 8)
+    with pytest.raises(ValueError):
+        bspline_field(c, (32, 40), 0)
+
+
+def test_cubic_bspline_and_point_disp_match_jax():
+    t = np.linspace(-2.5, 2.5, 101).astype(np.float32)
+    np.testing.assert_allclose(tb.cubic_bspline(torch.from_numpy(t)).numpy(),
+                               np.asarray(jb.cubic_bspline(jnp.asarray(t))),
+                               atol=1e-7, rtol=0)
+    c = _lattice((32, 32), 8, 0, batch=1)[0]
+    pts = np.array([[0.0, 0.0], [5.0, 9.0], [31.0, 31.0], [16.3, 4.7],
+                    [-3.0, 40.0]], np.float32)
+    ref = np.asarray(jb.bspline_point_disp(jnp.asarray(c), jnp.asarray(pts),
+                                           8))
+    got = tb.bspline_point_disp(torch.from_numpy(c), torch.from_numpy(pts),
+                                8).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def test_fit_lattice_to_field_matches_jax():
+    field = np.random.RandomState(5).randn(24, 28, 2).astype(np.float32)
+    ref = jb.fit_lattice_to_field(jnp.asarray(field), 6)
+    got = tb.fit_lattice_to_field(torch.from_numpy(field), 6)
+    # the lattice itself comes from two pseudo-inverses of near-singular
+    # bases (entries ~200 for a unit field, relative noise ~5e-5); its
+    # least-squares field, what a caller uses, is well conditioned
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(
+        tb.bspline_dense_field(got, (24, 28), 6).numpy(),
+        np.asarray(jb.bspline_dense_field(ref, (24, 28), 6)), atol=1e-4,
+        rtol=0)

@@ -17,6 +17,9 @@ from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  SegmentationModel)
 from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 from ukbb_cardiac_tpu_torch.models import fused_head as tfh
+from ukbb_cardiac_tpu_torch.reg import bspline as tb
+from ukbb_cardiac_tpu_torch.reg import register as tr
+from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
 
 torch.set_num_threads(1)
 
@@ -24,6 +27,9 @@ torch.set_num_threads(1)
 # order; bfloat16 features are read exactly by both, so the same order
 # argument holds, with the larger activations of a random net.
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# B-spline synthesis: at most 16 float32 products per value, summed in
+# another order; the adjoint sums up to (4s)^2 of them per control.
+FIELD_ATOL, ADJOINT_ATOL = 1e-5, 1e-4
 
 
 @pytest.fixture
@@ -94,3 +100,76 @@ def test_engine_on_card_matches_cpu(card):
         net = net.cpu()
     assert segs[0].shape == image.shape
     assert (segs[0] == segs[1]).mean() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing,lattice", [
+    ((24, 24), 10, None), ((48, 48), 10, None), ((96, 96), 10, None),
+    ((96, 96), 40, (6, 6)),            # synth_prev: a coarse lattice
+    ((97, 113), 7, (12, 23)),          # shorter in x, longer in y
+])
+def test_bspline_field_kernel_matches_plain(card, shape, spacing, lattice):
+    Cx, Cy = lattice or tb.lattice_shape(shape, spacing)
+    rng = np.random.RandomState(3)
+    c = torch.from_numpy(rng.randn(150, Cx, Cy, 2).astype(np.float32)).to(
+        card).requires_grad_(True)
+    G = torch.from_numpy(rng.randn(150, *shape, 2).astype(np.float32)).to(
+        card)
+    before = (bspline_field.launches, bspline_field.adjoint_launches)
+    out = bspline_field(c, shape, spacing)
+    (out * G).sum().backward()
+    torch.cuda.synchronize()
+    assert (bspline_field.launches, bspline_field.adjoint_launches) == (
+        before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            out, tb.bspline_dense_field_plain(c, shape, spacing),
+            atol=FIELD_ATOL, rtol=0)
+        torch.testing.assert_close(
+            c.grad, tb.bspline_adjoint_plain(G, (Cx, Cy), spacing),
+            atol=ADJOINT_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bspline_adjoint_is_deterministic(card):
+    G = torch.randn(150, 96, 96, 2, device=card,
+                    generator=torch.Generator(card).manual_seed(4))
+    grads = []
+    for _ in range(2):
+        c = torch.zeros(150, 13, 13, 2, device=card, requires_grad=True)
+        (bspline_field(c, (96, 96), 10) * G).sum().backward()
+        grads.append(c.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_bspline_field_rejects_non_contiguous_on_card(card):
+    c = torch.zeros(2, 6, 7, 2, device=card).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bspline_field(c, (24, 24), 10)
+
+
+@pytest.mark.cuda
+def test_register_batch_on_card_matches_cpu(card):
+    """48^2, 2 levels on smooth blobs: the card's run against the CPU's.
+    Adam turns float noise in near-zero gradients into steps of up to lr;
+    on the CPU the same run held to 1e-3 px against the JAX package."""
+    X = Y = 48
+    gx, gy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    rng = np.random.RandomState(5)
+
+    def frames(shifts):
+        return np.stack([np.exp(-((gx - 24 - s) ** 2 + (gy - 22 - s / 2) ** 2)
+                                / 72.0) for s in shifts])
+
+    tgt = (frames([0, 1.5, 3.0]) + 0.01 * rng.randn(3, X, Y)).astype(
+        np.float32)
+    src = (frames([1.5, 3.0, 1.0]) + 0.01 * rng.randn(3, X, Y)).astype(
+        np.float32)
+    cfg = tr.RegConfig(spacing=8, levels=2, iters=30, lr=0.5, be_weight=1e-2)
+    fields = []
+    for dev in ("cpu", card):
+        controls = tr.make_register_batch((X, Y), cfg, device=dev)(tgt, src)
+        fields.append(tr.total_field(controls, (X, Y), cfg).cpu())
+    torch.testing.assert_close(fields[1], fields[0], atol=1e-3, rtol=0)
+    assert fields[0].abs().max() > 1.0

@@ -42,8 +42,19 @@ _PROBE = textwrap.dedent("""
     import chip_smoke
     leaked = sorted(m for m in sys.modules if banned(m))
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# the strain slice's modules, which the walk above must reach
+SLICE_MODULES = {
+    "ukbb_cardiac_tpu_torch.reg.bspline",
+    "ukbb_cardiac_tpu_torch.reg.bspline_field",
+    "ukbb_cardiac_tpu_torch.reg.register",
+    "ukbb_cardiac_tpu_torch.phenotype.strain",
+    "ukbb_cardiac_tpu_torch.phenotype.wall_thickness",
+    "ukbb_cardiac_tpu_torch.cli.eval_strain_sax",
+    "ukbb_cardiac_tpu_torch.cli.eval_wall_thickness",
+}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -51,7 +62,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    walked = set(out.stdout.split())
+    assert len(walked) >= 40
+    assert SLICE_MODULES <= walked, SLICE_MODULES - walked
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

@@ -17,6 +17,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -33,6 +34,12 @@ SIGNATURES = {
         # bf16, n_level, N, X, Y, n_class; feats[5]; chans[5];
         # wbuf, tap_idx, tap_w, scratch, out, stream
         ("ukbb_fused_head", _I, [_I] * 6 + [_P] * 5 + [_I] * 5 + [_P] * 6),
+        ("ukbb_cuda_error_string", ctypes.c_char_p, [_I]),
+    ],
+    "bspline_field": [
+        # B, Cx, Cy, X, Y, spacing; weight table, input, output, stream
+        ("ukbb_bspline_field", _I, [_I] * 6 + [_P] * 4),
+        ("ukbb_bspline_field_adjoint", _I, [_I] * 6 + [_P] * 4),
         ("ukbb_cuda_error_string", ctypes.c_char_p, [_I]),
     ],
 }
@@ -65,6 +72,12 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _finish(started):
+    proc, _, _, t0 = started
+    log, _ = proc.communicate()
+    return log, time.perf_counter() - t0
+
+
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Build]:
     """Compile every named kernel that has no current build, one ``nvcc``
     per source, all started together.  Raises with the compiler's output
@@ -81,9 +94,11 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Build]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, out, tmp, time.perf_counter())
+    # wait on every compiler at once, so each build's time is its own
+    with ThreadPoolExecutor(max(len(started), 1)) as pool:
+        logs = dict(zip(started, pool.map(_finish, started.values())))
     for name, (proc, out, tmp, t0) in started.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        log, seconds = logs[name]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} "
                                f"(exit {proc.returncode}):\n{log}")

@@ -1,0 +1,129 @@
+"""Batched B-spline lattice → dense field synthesis and its adjoint.
+
+Replaces the Pallas TPU kernel ``ukbb_cardiac_tpu/reg/pallas_bspline.py:84``
+(``pallas_dense_field``), which takes one lattice and has no gradient; the
+JAX registration differentiates through the same function in its conv
+form (``reg/bspline.py::bspline_dense_field`` under ``jax.grad``).  Here
+one ``torch.autograd.Function`` covers both directions for a batch:
+
+- forward  (B, Cx, Cy, 2) → (B, X, Y, 2): ``csrc/bspline_field.cu``
+  ``field_kernel`` on CUDA tensors, :func:`bspline_dense_field_plain` on
+  CPU tensors;
+- backward (B, X, Y, 2) → (B, Cx, Cy, 2), ``Bxᵀ G By``
+  (:func:`bspline_field_adjoint`): the kernel's ``adjoint_kernel``
+  (deterministic, no atomics) on CUDA tensors,
+  :func:`bspline_adjoint_plain` on CPU tensors.
+
+Nothing falls back from CUDA to the plain version.  Both kernels are bound
+by bytes (the field written or read once); see the source for the count.
+``bspline_field.launches`` and ``bspline_field.adjoint_launches`` count
+kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ukbb_cardiac_tpu_torch.reg.bspline import (bspline_adjoint_plain,
+                                                bspline_dense_field_plain,
+                                                residue_weights)
+
+_TABLES = {}
+
+
+def weight_table(spacing: int, device) -> torch.Tensor:
+    """The (spacing, 4) float32 residue weight table on ``device``."""
+    key = (spacing, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(residue_weights(spacing)).to(device)
+    return _TABLES[key]
+
+
+def _launch(symbol: str, src: torch.Tensor, out: torch.Tensor,
+            lattice: Tuple[int, int], image_shape: Tuple[int, int],
+            spacing: int) -> None:
+    from ukbb_cardiac_tpu_torch import kernels
+
+    lib = kernels.load("bspline_field")
+    B = src.shape[0]
+    (Cx, Cy), (X, Y) = lattice, image_shape
+    if B * X * Y >= 2 ** 31 or B > 65535:
+        raise ValueError(f"{B} fields of {X}x{Y}: too many for the kernel's "
+                         f"grid (B <= 65535, B*X*Y < 2^31)")
+    dev = src.device
+    table = weight_table(spacing, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, symbol)(B, Cx, Cy, X, Y, spacing, table.data_ptr(),
+                                  src.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {rc} "
+                           f"({kernels.error_string(lib, rc)})")
+
+
+class _BSplineField(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, control, X, Y, spacing):
+        ctx.meta = (tuple(control.shape[1:3]), spacing)
+        if control.device.type == "cpu":
+            return bspline_dense_field_plain(control, (X, Y), spacing)
+        out = torch.empty((control.shape[0], X, Y, 2), dtype=torch.float32,
+                          device=control.device)
+        if control.shape[0]:
+            _launch("ukbb_bspline_field", control, out, ctx.meta[0], (X, Y),
+                    spacing)
+            bspline_field.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        lattice, spacing = ctx.meta
+        return bspline_field_adjoint(grad.contiguous(), lattice,
+                                     spacing), None, None, None
+
+
+def bspline_field_adjoint(grad: torch.Tensor, lattice: Tuple[int, int],
+                          spacing: int) -> torch.Tensor:
+    """(B, X, Y, 2) field cotangents → (B, Cx, Cy, 2) lattice gradients,
+    ``Bxᵀ G By``: the adjoint kernel on a CUDA tensor, the plain adjoint on
+    a CPU tensor.  ``grad`` is contiguous float32 (the backward pass makes
+    it so)."""
+    if grad.device.type == "cpu":
+        return bspline_adjoint_plain(grad, lattice, spacing)
+    B, X, Y, _ = grad.shape
+    out = torch.empty((B,) + tuple(lattice) + (2,), dtype=torch.float32,
+                      device=grad.device)
+    if B:
+        _launch("ukbb_bspline_field_adjoint", grad, out, lattice, (X, Y),
+                spacing)
+        bspline_field.adjoint_launches += 1
+    return out
+
+
+def bspline_field(control: torch.Tensor, image_shape: Tuple[int, int],
+                  spacing: int) -> torch.Tensor:
+    """(B, Cx, Cy, 2) float32 lattices → (B, X, Y, 2) dense fields,
+    differentiable in ``control``.  Controls beyond the lattice count as
+    zero.  Raises on a device other than cuda or cpu and on an input that
+    is not contiguous float32."""
+    if control.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"bspline_field runs on cuda or cpu, not "
+                         f"{control.device}")
+    if control.dtype != torch.float32:
+        raise TypeError(f"lattices must be float32, got {control.dtype}")
+    if control.dim() != 4 or control.shape[-1] != 2:
+        raise ValueError(f"lattices must be (B, Cx, Cy, 2), got "
+                         f"{tuple(control.shape)}")
+    if not control.is_contiguous():
+        raise ValueError("lattices must be contiguous")
+    X, Y = (int(d) for d in image_shape)
+    if int(spacing) < 1:
+        raise ValueError(f"spacing must be >= 1, got {spacing}")
+    return _BSplineField.apply(control, X, Y, int(spacing))
+
+
+bspline_field.launches = 0
+bspline_field.adjoint_launches = 0
