@@ -9,7 +9,10 @@
    shapes and times the kernel, the plain version and a library yardstick
    with CUDA events:
    - the fused FCN head on a 64-slice chunk of 192x208 features from the
-     trained ``FCN_sa`` encoder, float32 and bfloat16;
+     trained ``FCN_sa`` encoder, float32 and bfloat16, with its nvcc time
+     and registers, its tensor-core (3xTF32) bound beside the float32
+     CUDA-core bound, and its coarse / head kernels' device times under
+     torch.profiler;
    - the B-spline lattice → field synthesis and its adjoint at B = 150
      registration pairs, at each pyramid level of ``RegConfig.
      cine_2d_motion()`` (24^2 / 6x6, 48^2 / 8x8, 96^2 / 13x13, spacing 10)
@@ -42,6 +45,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -57,6 +61,7 @@ MAIN_SHAPE = (192, 208, 10, 50)      # (X, Y, Z, T) of one SA cine
 CHUNK = 64                           # slices per forward on the main path
 N_SUBJECTS = 3
 PEAK_F32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
+PEAK_TF32_FLOPS = 495e12             # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3
 KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # B-spline synthesis: at most 20 float32 FMAs per value in another order;
@@ -123,6 +128,26 @@ def graph_ms(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_split(fn, names) -> dict:
+    """Device milliseconds of one call of ``fn`` under torch.profiler,
+    summed per kernel whose name contains each of ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k in names:
+                if k in e.key:
+                    out[k] += e.self_device_time_total / 1e3
+    return out
 
 
 # --- phantoms: the geometry of tests/phantom.py::sax_phantom ---------------
@@ -199,30 +224,60 @@ def build_phase(kernels):
 
 
 def head_bound(feats, n_class, same_dim, fc):
-    """Least time of the head on this card for these inputs: the float32
-    FLOPs of the kernel's algorithm (fc1 applied at each level's own
-    resolution, csrc/fused_head.cu) over the float32 peak, against bytes
-    (features in once, logits out once) over the memory rate.
-    Returns (ms, 'operations' | 'bytes')."""
+    """Least time of the head on this card for these inputs, for the
+    kernel's algorithm (fc1 applied at each level's own resolution,
+    csrc/fused_head.cu).  Returns (ms, 'operations' | 'bytes', f32_ms):
+    - the tensor-core bound the kernel works against: its products as
+      three TF32 products each (the 3xTF32 split) over the TF32 peak,
+      beside the bilinear taps on the CUDA cores over the float32 peak
+      (the two units run side by side), against bytes (features in once,
+      logits out once) over the memory rate;
+    - f32_ms, every FLOP on the CUDA cores over the float32 peak: the
+      bound of a float32 design, printed beside it for comparison."""
     N, C0, X, Y = feats[0].shape
     pix = N * X * Y
-    flops = 2 * pix * (C0 * same_dim + same_dim * fc    # level 0, fc1 slice
-                       + fc * fc + fc * n_class)         # fc2, out
+    mma = 2 * pix * (C0 * same_dim + same_dim * fc     # level 0, fc1 slice
+                     + fc * fc + fc * n_class)         # fc2, out
+    taps = 0
     for f in feats[1:]:
         coarse = f.shape[0] * f.shape[2] * f.shape[3]
-        flops += 2 * coarse * (f.shape[1] * same_dim     # projection
-                               + same_dim * fc)          # fc1 slice
-        flops += 2 * pix * 4 * fc                        # bilinear taps
+        mma += 2 * coarse * (f.shape[1] * same_dim      # projection
+                             + same_dim * fc)           # fc1 slice
+        taps += 2 * pix * 4 * fc                        # bilinear taps
     nbytes = sum(f.numel() * f.element_size() for f in feats) \
         + pix * n_class * 4
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops = max(3 * mma / PEAK_TF32_FLOPS, taps / PEAK_F32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    f32_ms = 1e3 * max((mma + taps) / PEAK_F32_FLOPS, t_bytes)
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes", f32_ms)
 
 
-def kernel_phase(card, fh, tfcn, model):
+def ptxas_registers(build):
+    """[(kernel<type>, registers, spill line)] from the compiler's -v
+    lines (per entry: the name, then its spill line, then registers)."""
+    out, name, spill = [], None, ""
+    for line in build.ptxas:
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)I(\w+?)E", m.group(1))
+            name = m.group(1) if not k else f"{k.group(1)}<" + (
+                "bf16" if "bfloat16" in k.group(2) else "f32") + ">"
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+    return out
+
+
+def kernel_phase(card, fh, tfcn, model, build):
     print("[2/5] fused head vs its plain version at the main path's shapes",
           flush=True)
+    print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
+          + "; ".join(f"{k} {r} ({spill})"
+                      for k, r, spill in ptxas_registers(build)))
     X, Y = MAIN_SHAPE[:2]
     image, _ = sax_phantom(X, Y, 2, CHUNK // 2, r_lv=0.1 * X, wall=0.039 * X,
                            rng=np.random.RandomState(7))
@@ -254,12 +309,19 @@ def kernel_phase(card, fh, tfcn, model):
             ms = cuda_ms(lambda: fh.fused_head(feats, head))
             plain_ms = cuda_ms(lambda: fh.fused_head_plain(feats, head))
             enc_ms = cuda_ms(lambda: net.encode(xin))
-            bound_ms, bound_by = head_bound(feats, head.n_class,
-                                            head.same_dim, head.W1.shape[1])
+            bound_ms, bound_by, f32_ms = head_bound(
+                feats, head.n_class, head.same_dim, head.W1.shape[1])
             print(f"  fused_head {dtype} at {tuple(feats[0].shape)}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}); cuDNN encoder "
+                  f"{bound_ms:.4f} ms ({bound_by}: 3xTF32 tensor cores), "
+                  f"float32 CUDA-core bound {f32_ms:.4f} ms; share "
+                  f"{100 * bound_ms / ms:.1f} %; cuDNN encoder "
                   f"{enc_ms:.4f} ms [{card}]")
+            split = device_split(lambda: fh.fused_head(feats, head),
+                                 ("coarse_kernel", "head_kernel"))
+            print(f"  fused_head {dtype} under torch.profiler: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                  + f" of device time [{card}]")
             result[dtype] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
@@ -378,7 +440,8 @@ def bspline_phase(card, tb, bf):
     return result
 
 
-def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work):
+def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
+                    n_level):
     print(f"[3/5] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
@@ -392,7 +455,9 @@ def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work):
     df = ventricle.evaluate_ventricular_volume_dataset(data_dir, csv)
     wall = time.perf_counter() - t0
     launches = {"fused_head": fh.fused_head.launches}
-    print(f"  main path {wall:.2f} s; launches {launches}")
+    print(f"  main path {wall:.2f} s; launches {launches}: "
+          f"{launches['fused_head'] / n_level:g} fused_head calls x "
+          f"{n_level} kernels (coarse levels + head)")
     if launches["fused_head"] <= 0:
         raise AssertionError("the main path never launched fused_head")
     if len(records) != N_SUBJECTS or len(df) != N_SUBJECTS:
@@ -655,15 +720,15 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    build_phase(kernels)
+    builds = build_phase(kernels)
     model = deploy.load_segmentation_model(BUNDLE, "cuda")
-    head = kernel_phase(card, fh, tfcn, model)
+    head = kernel_phase(card, fh, tfcn, model, builds["fused_head"])
     spline = bspline_phase(card, tb, bf)
     work = tempfile.mkdtemp(prefix="chip_smoke_",
                             dir=os.path.join(ROOT, "build"))
     try:
         launches = main_path_phase(card, fh, nifti, deploy, ventricle,
-                                   engine_mod, work)
+                                   engine_mod, work, model.head.n_level)
         launches.update(strain_phase(card, nifti, crop, bf, strain, register,
                                      eval_wall_thickness, work))
     finally:

@@ -4,8 +4,8 @@ kernel's host-side layout.
 
 The Pallas kernel runs under its interpreter on the CPU, as
 ``tests/test_pallas.py`` runs it.  The CUDA kernel cannot run here: its
-weight table and indexing are checked by a numpy model of the kernel's
-loops, and the kernel itself against the plain version by
+weight table, indexing and the adjoint's band plan are checked by a numpy
+model of the kernel's loops, and the kernel itself against the plain version by
 ``tests/test_torch_card.py`` and ``chip_smoke.py`` on a card.
 """
 
@@ -18,7 +18,9 @@ import torch
 from ukbb_cardiac_tpu.reg import bspline as jb
 from ukbb_cardiac_tpu.reg.pallas_bspline import pallas_dense_field
 from ukbb_cardiac_tpu_torch.reg import bspline as tb
-from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
+from ukbb_cardiac_tpu_torch.reg.bspline_field import (ADJOINT_THREADS,
+                                                      adjoint_plan,
+                                                      bspline_field)
 
 torch.set_num_threads(1)
 
@@ -143,6 +145,65 @@ def _kernel_model(c, shape, s):
 
 
 def _adjoint_model(G, lattice, s):
+    """adjoint_kernel's loops: for each band of the plan and each slice of
+    up to ADJOINT_THREADS of its columns, the support rows staged in
+    chunks; pass 1 walks the rows in ascending x, row x = q*s + r adding
+    w[r][a] G[x] into a window of 4 sums for controls q + a and storing
+    control q's when its run of s rows ends; pass 2 sums the columns of
+    each control column's support.  Also returns how often each cotangent
+    pixel was staged."""
+    w = tb.residue_weights(s)
+    B, X, Y, _ = G.shape
+    Cx, Cy = lattice
+    ni, nj, rows, width = adjoint_plan(tuple(lattice), (X, Y), s)
+    out = np.zeros((B, Cx, Cy, 2), np.float32)
+    staged = np.zeros((X, Y), np.int64)
+    for j0 in range(0, Cy, nj):
+        j1 = min(Cy, j0 + nj)
+        ya = max(0, (j0 - 3) * s)
+        W = max(0, min(Y, j1 * s) - ya)
+        assert W <= width
+        for i0 in range(0, Cx, ni):
+            i1 = min(Cx, i0 + ni)
+            xa, xb = max(0, (i0 - 3) * s), min(X, i1 * s)
+            part = np.zeros((B, i1 - i0, W, 2), np.float32)
+            for ys in range(ya, ya + W, ADJOINT_THREADS):
+                ws = min(ADJOINT_THREADS, ya + W - ys)
+                win = np.zeros((4, B, ws, 2), np.float32)
+                q, r = xa // s, 0
+
+                def store(i, v):
+                    if i0 <= i < i1:
+                        part[:, i - i0, ys - ya:ys - ya + ws] = v
+
+                for x0 in range(xa, xb, rows):
+                    x1 = min(xb, x0 + rows)
+                    stage = G[:, x0:x1, ys:ys + ws]
+                    staged[x0:x1, ys:ys + ws] += 1
+                    for x in range(x0, x1):
+                        win += w[r][:, None, None, None] * stage[:, x - x0]
+                        r += 1
+                        if r == s:
+                            store(q, win[0])
+                            win = np.concatenate([win[1:], win[:1] * 0])
+                            q, r = q + 1, 0
+                for k in range(4):
+                    store(q + k, win[k])
+            for il in range(i1 - i0):
+                for j in range(j0, j1):
+                    acc = np.zeros((B, 2), np.float32)
+                    for a in (3, 2, 1, 0):
+                        y0 = (j - a) * s
+                        for r in range(max(0, -y0), min(s, Y - y0)):
+                            acc += w[r, a] * part[:, il, y0 + r - ya]
+                    out[:, i0 + il, j] = acc
+    return out, staged
+
+
+def _adjoint_in_order(G, lattice, s):
+    """Each control's sum over its support rows in ascending x, as the
+    plain loop of the earlier one-block-per-control-row kernel wrote it,
+    then pass 2: the order the window keeps."""
     w = tb.residue_weights(s)
     B, X, Y, _ = G.shape
     Cx, Cy = lattice
@@ -152,27 +213,50 @@ def _adjoint_model(G, lattice, s):
         for x in range(max(0, (i - 3) * s), min(X, (i + 1) * s)):
             part += w[x % s, i - x // s] * G[:, x]
         for j in range(Cy):
-            for y in range(max(0, (j - 3) * s), min(Y, (j + 1) * s)):
-                out[:, i, j] += w[y % s, j - y // s] * part[:, y]
+            acc = np.zeros((B, 2), np.float32)
+            for a in (3, 2, 1, 0):
+                y0 = (j - a) * s
+                for r in range(max(0, -y0), min(s, Y - y0)):
+                    acc += w[r, a] * part[:, y0 + r]
+            out[:, i, j] = acc
     return out
 
 
-@pytest.mark.parametrize("shape,spacing,delta", [((23, 31), 5, 0),
-                                                 ((30, 26), 4, -2),
-                                                 ((24, 24), 10, 2)])
+@pytest.mark.parametrize("shape,spacing,delta", [
+    ((23, 31), 5, 0), ((30, 26), 4, -2), ((24, 24), 10, 2),
+    ((24, 24), 10, 0), ((48, 48), 10, 0), ((96, 96), 10, 0),
+    ((96, 96), 40, None),              # the coarse-lattice densify, 6 x 6
+    ((192, 192), 10, 0),               # one band, rows in 10 chunks
+    ((96, 1024), 10, 0),               # 3 bands of control rows
+    ((40, 1536), 10, 0),               # bands of controls, column slices
+])
 def test_kernel_model_matches_plain(shape, spacing, delta):
-    c = _lattice(shape, spacing, delta, seed=3)
+    if delta is None:
+        c = np.random.RandomState(3).randn(1, 6, 6, 2).astype(np.float32)
+    else:
+        c = _lattice(shape, spacing, delta, batch=1 if max(shape) > 96
+                     else 2, seed=3)
     G = np.random.RandomState(4).randn(c.shape[0], *shape, 2).astype(
         np.float32)
+    if max(shape) <= 96:
+        np.testing.assert_allclose(
+            _kernel_model(c, shape, spacing),
+            tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
+                                         spacing).numpy(), atol=SYNTH_ATOL,
+            rtol=0)
+    got, staged = _adjoint_model(G, c.shape[1:3], spacing)
     np.testing.assert_allclose(
-        _kernel_model(c, shape, spacing),
-        tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
-                                     spacing).numpy(), atol=SYNTH_ATOL,
+        got, tb.bspline_adjoint_plain(torch.from_numpy(G), c.shape[1:3],
+                                      spacing).numpy(), atol=ADJOINT_ATOL,
         rtol=0)
-    np.testing.assert_allclose(
-        _adjoint_model(G, c.shape[1:3], spacing),
-        tb.bspline_adjoint_plain(torch.from_numpy(G), c.shape[1:3],
-                                 spacing).numpy(), atol=ADJOINT_ATOL, rtol=0)
+    if max(shape) <= 96:   # the window keeps each control's order of sums
+        np.testing.assert_array_equal(
+            got, _adjoint_in_order(G, c.shape[1:3], spacing))
+    ni, nj = adjoint_plan(c.shape[1:3], shape, spacing)[:2]
+    if (ni, nj) == tuple(c.shape[1:3]):
+        assert staged.max() == 1   # one band: each pixel read once
+    else:
+        assert staged.max() > 1    # bands share the rows between them
 
 
 def test_wrapper_takes_plain_version_on_cpu():

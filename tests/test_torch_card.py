@@ -39,9 +39,12 @@ def card():
     return resolve_device("cuda")
 
 
-def _random_fcn(n_class=4, seed=0):
-    """Full-width FCN with seeded random weights and BN statistics."""
-    cfg = tfcn.FCNConfig(n_class=n_class)
+def _random_fcn(n_class=4, seed=0, n_level=5):
+    """FCN at the released widths (the first ``n_level`` levels) with
+    seeded random weights and BN statistics."""
+    cfg = tfcn.FCNConfig(n_class=n_class, n_level=n_level,
+                         n_filter=(16, 32, 64, 128, 256)[:n_level],
+                         n_block=(2, 2, 3, 3, 3)[:n_level])
     net = tfcn.FCN(cfg)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -72,7 +75,30 @@ def test_fused_head_kernel_matches_plain(card, dtype, n_class, shape):
         got = tfh.fused_head(feats, head)
         torch.cuda.synchronize()
         ref = tfh.fused_head_plain(feats, head)
-    assert tfh.fused_head.launches == before + 1
+    assert tfh.fused_head.launches == before + head.n_level
+    assert got.shape == (N, n_class, X, Y)
+    torch.testing.assert_close(got, ref, atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_class,n_level,shape", [
+    (2, 3, (2, 36, 44)),   # 1584 pixels per image: a last tile of 48
+    (4, 2, (3, 18, 26)),   # 468: a last 16-pixel block of 4 pixels
+    (8, 1, (2, 13, 7)),    # 91: not 16-byte aligned, staged by plain loads
+])
+def test_fused_head_kernel_ragged_tiles(card, dtype, n_class, n_level,
+                                        shape):
+    net = _random_fcn(n_class, seed=n_level, n_level=n_level).to(card)
+    head = tfh.fold_head(net)
+    N, X, Y = shape
+    x = torch.rand(N, X, Y, 1, device=card,
+                   generator=torch.Generator(card).manual_seed(2))
+    with torch.inference_mode():
+        feats = net.encode(tfcn.nchw(x, dtype))
+        got = tfh.fused_head(feats, head)
+        torch.cuda.synchronize()
+        ref = tfh.fused_head_plain(feats, head)
     assert got.shape == (N, n_class, X, Y)
     torch.testing.assert_close(got, ref, atol=ATOL[dtype], rtol=0)
 
@@ -107,6 +133,8 @@ def test_engine_on_card_matches_cpu(card):
     ((24, 24), 10, None), ((48, 48), 10, None), ((96, 96), 10, None),
     ((96, 96), 40, (6, 6)),            # synth_prev: a coarse lattice
     ((97, 113), 7, (12, 23)),          # shorter in x, longer in y
+    ((192, 192), 10, None),            # adjoint: rows staged in 5 chunks
+    ((40, 1536), 10, None),            # adjoint: bands of controls
 ])
 def test_bspline_field_kernel_matches_plain(card, shape, spacing, lattice):
     Cx, Cy = lattice or tb.lattice_shape(shape, spacing)
@@ -131,13 +159,15 @@ def test_bspline_field_kernel_matches_plain(card, shape, spacing, lattice):
 
 
 @pytest.mark.cuda
-def test_bspline_adjoint_is_deterministic(card):
-    G = torch.randn(150, 96, 96, 2, device=card,
+@pytest.mark.parametrize("shape", [(96, 96), (40, 1536)])
+def test_bspline_adjoint_is_deterministic(card, shape):
+    G = torch.randn(150, *shape, 2, device=card,
                     generator=torch.Generator(card).manual_seed(4))
+    lattice = tb.lattice_shape(shape, 10)
     grads = []
     for _ in range(2):
-        c = torch.zeros(150, 13, 13, 2, device=card, requires_grad=True)
-        (bspline_field(c, (96, 96), 10) * G).sum().backward()
+        c = torch.zeros(150, *lattice, 2, device=card, requires_grad=True)
+        (bspline_field(c, shape, 10) * G).sum().backward()
         grads.append(c.grad)
     assert torch.equal(grads[0], grads[1])
 

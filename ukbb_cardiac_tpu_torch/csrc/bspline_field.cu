@@ -26,11 +26,11 @@
 // 11.1 MB and reads 0.2 MB of lattices, 3.4 us at 3.35 TB/s; its FMAs (16
 // per column and run of s rows, then 4 per output value) are 26 MFLOP,
 // 0.4 us at 67 TFLOP/s.  The adjoint reads the same 11.1 MB.  Both are bound
-// by bytes, and at these sizes by launch latency.  The design keeps device-memory traffic at the bound: the
-// forward writes each output once, coalesced (neighbouring threads write
-// neighbouring float2), and reads the small lattice through the read-only
-// cache; the adjoint reads each cotangent row coalesced and keeps its
-// x-reduced partial sums in shared memory.
+// by bytes, and at these sizes by launch latency.  The design keeps
+// device-memory traffic at the bound: the forward writes each output once,
+// coalesced (neighbouring threads write neighbouring float2), and reads the
+// small lattice through the read-only cache; the adjoint reads each
+// cotangent byte from device memory once, into shared memory.
 //
 // Two kernels on the caller's stream:
 //   field_kernel: one thread per column y and run of s rows x = q*s + r
@@ -39,23 +39,47 @@
 //     reduces the 4 control rows over their 4 columns once (16 loads
 //     through the read-only cache), then writes its s pixels with 4 FMAs
 //     each: Bx @ (C @ By^T), the inner sum over c (y) first.
-//   adjoint_kernel: one block per (b, i).  Pass 1: each thread owns columns
-//     y and sums the 4s rows x of control i's support, walked as (q, r)
-//     pairs in ascending x without a division, into a shared (Y, 2) buffer.
-//     Pass 2: each thread owns controls j and sums the 4s columns of its
-//     support.  Fixed loop orders and no atomics: two runs agree bit for
-//     bit.
+//   adjoint_kernel: one block of 256 threads per pair, which walks bands of
+//     ni x nj controls (the whole lattice unless its partial sums do not
+//     fit: the host plans the bands, reg/bspline_field.py::adjoint_plan).
+//     A band's support, rows [(i0-3)s, i1*s) by columns [(j0-3)s, j1*s)
+//     clipped to the image, is staged through shared memory in slices of up
+//     to 256 columns and chunks of whole runs of s rows (40 at s = 10),
+//     with cp.async (16-byte copies where aligned), double-buffered: the
+//     next chunk loads while this one is summed.
+//     Pass 1: one thread per column walks the rows in ascending x; row
+//     x = q*s + r feeds controls q .. q+3 with weights w[r][0..3], which
+//     the thread keeps as a window of 4 sums in registers, so each staged
+//     value is read once; when a run of s rows ends, control q's sum is
+//     complete and goes to a shared (ni, W, 2) buffer.
+//     Pass 2: threads over (i, j) sum the columns of j's support.
+//     Tried and slower on the H100 (PERF.md section 6): 4 threads a
+//     column, thread k summing the controls i = k mod 4 in the same order
+//     (384 threads, all busy at 96^2), 12.5 us against this design's
+//     10.8 us at 96^2: every staged value is then read from shared memory
+//     4 times, not once.
+//     At 96^2 the band is the whole 13 x 13 lattice and a pair's 73.7 KB
+//     cotangent comes in 3 chunks, one block per pair, 72 KB of shared
+//     memory (three blocks fit an SM), so the 150 pairs run in one wave; at 192^2 the rows come in
+//     10 chunks under one band.  Only where bands are needed (a row of the
+//     lattice's partial sums over half of 96 KB) are the 3s rows or columns
+//     that two bands share read once per band.  Each control's sums run in
+//     ascending x, then ascending y, in fixed loop orders with no atomics:
+//     two runs agree bit for bit.
+//   Registers (nvcc 12.8, -Xptxas -v): field_kernel 40, adjoint_kernel 48,
+//   no spills.
 // Each C entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int FIELD_TILE_Y = 32;  // threads along y: one warp, coalesced
 constexpr int FIELD_TILE_Q = 4;   // runs of s rows x per block
-constexpr int ADJOINT_THREADS = 128;
+constexpr int ADJOINT_THREADS = 256;  // also the widest column slice
 
 __global__ void field_kernel(int Cx, int Cy, int X, int Y, int s,
                              const float* __restrict__ table,
@@ -103,49 +127,159 @@ __global__ void field_kernel(int Cx, int Cy, int X, int Y, int s,
   }
 }
 
-__global__ void adjoint_kernel(int Cx, int Cy, int X, int Y, int s,
-                               const float* __restrict__ table,
-                               const float2* __restrict__ g,
-                               float2* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* w = sm;                                        // (s, 4)
-  float2* part = reinterpret_cast<float2*>(sm + 4 * s);  // (Y,), 8-aligned
-  for (int t = threadIdx.x; t < 4 * s; t += blockDim.x) w[t] = table[t];
-  __syncthreads();
-  const int b = blockIdx.x / Cx;
-  const int i = blockIdx.x - b * Cx;
-  const float2* gb = g + static_cast<size_t>(b) * X * Y;
-  // rows x = q*s + r with Bx[x, i] = w[r][i - q] != 0: q = i-3 .. i, in
-  // ascending x
-  for (int y = threadIdx.x; y < Y; y += blockDim.x) {
-    float px = 0.f, py = 0.f;
-    for (int a = 3; a >= 0; --a) {
-      const int x0 = (i - a) * s;
-      const int r0 = max(0, -x0), r1 = min(s, X - x0);
-      for (int r = r0; r < r1; ++r) {
-        const float wt = w[r * 4 + a];
-        const float2 v = gb[static_cast<size_t>(x0 + r) * Y + y];
-        px = fmaf(wt, v.x, px);
-        py = fmaf(wt, v.y, py);
-      }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// Stage rows [x0, x1) by columns [ys, ys + ws) of one pair's cotangent
+// into dst (x1 - x0, ws), as one cp.async group.
+__device__ __forceinline__ void stage_rows(float2* dst, const float2* gb,
+                                           int x0, int x1, int ys, int ws,
+                                           int Y, bool wide) {
+  if (wide) {  // 16-byte copies: Y, ys and ws even, g 16-byte aligned
+    const int half = ws / 2;
+    for (int k = threadIdx.x; k < (x1 - x0) * half; k += ADJOINT_THREADS) {
+      const int r = k / half, c = 2 * (k - r * half);
+      cp_async16(dst + r * ws + c, gb + static_cast<size_t>(x0 + r) * Y + ys + c);
     }
-    part[y] = make_float2(px, py);
+  } else {
+    for (int k = threadIdx.x; k < (x1 - x0) * ws; k += ADJOINT_THREADS) {
+      const int r = k / ws, c = k - r * ws;
+      cp_async8(dst + r * ws + c, gb + static_cast<size_t>(x0 + r) * Y + ys + c);
+    }
   }
-  __syncthreads();
-  float2* ob = out + (static_cast<size_t>(b) * Cx + i) * Cy;
-  for (int j = threadIdx.x; j < Cy; j += blockDim.x) {
-    float ax = 0.f, ay = 0.f;
-    for (int a = 3; a >= 0; --a) {
-      const int y0 = (j - a) * s;
-      const int r0 = max(0, -y0), r1 = min(s, Y - y0);
-      for (int r = r0; r < r1; ++r) {
-        const float wt = w[r * 4 + a];
-        const float2 v = part[y0 + r];
-        ax = fmaf(wt, v.x, ax);
-        ay = fmaf(wt, v.y, ay);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void fma2(float wt, float2 v, float2& acc) {
+  acc.x = fmaf(wt, v.x, acc.x);
+  acc.y = fmaf(wt, v.y, acc.y);
+}
+
+__global__ void __launch_bounds__(ADJOINT_THREADS)
+    adjoint_kernel(int Cx, int Cy, int X, int Y, int s, int ni, int nj,
+                   int R, int Wmax, const float* __restrict__ table,
+                   const float2* __restrict__ g, float2* __restrict__ out) {
+  extern __shared__ float4 sm4[];
+  const float4* w4 = sm4;                                  // (s) x 4 weights
+  const int SW = min(Wmax, ADJOINT_THREADS);               // slice columns
+  const int BS = (R * SW + 1) & ~1;                        // float2, even
+  float2* stage = reinterpret_cast<float2*>(sm4 + s);      // 2 x (R, SW)
+  float2* part = stage + 2 * BS;                           // (ni, Wmax)
+  const int tid = threadIdx.x;
+  for (int k = tid; k < 4 * s; k += ADJOINT_THREADS)
+    reinterpret_cast<float*>(sm4)[k] = table[k];
+  const float2* gb = g + static_cast<size_t>(blockIdx.x) * X * Y;
+  const bool g16 = reinterpret_cast<uintptr_t>(g) % 16 == 0 && Y % 2 == 0;
+  for (int j0 = 0; j0 < Cy; j0 += nj) {
+    const int j1 = min(Cy, j0 + nj);
+    // columns of the band's support: y with By[y, j] != 0, j0 <= j < j1
+    const int ya = max(0, (j0 - 3) * s), W = max(0, min(Y, j1 * s) - ya);
+    for (int i0 = 0; i0 < Cx; i0 += ni) {
+      const int i1 = min(Cx, i0 + ni), nI = i1 - i0;
+      const int xa = max(0, (i0 - 3) * s), xb = min(X, i1 * s);
+      const int chunks = xb > xa ? (xb - xa + R - 1) / R : 0;
+      __syncthreads();  // the last band's pass 2 is done with part
+      for (int k = tid; k < nI * W; k += ADJOINT_THREADS)
+        part[k] = make_float2(0.f, 0.f);
+      // pass 1, a slice of up to SW columns at a time, one column per
+      // thread: walk the rows x in ascending order through the staged
+      // chunks; row x = q*s + r feeds controls q .. q+3 with weights
+      // w[r][0..3], which the thread keeps as a window of 4 sums in
+      // registers.  When a run of s rows ends, control q is complete.
+      for (int ys = ya; ys < ya + W; ys += SW) {
+        const int ws = min(SW, ya + W - ys);
+        const bool wide = g16 && ys % 2 == 0 && ws % 2 == 0;
+        float2* col = part + ys - ya + tid;
+        float2 c0 = make_float2(0.f, 0.f), c1 = c0, c2 = c0, c3 = c0;
+        int q = xa / s, r = 0;
+        __syncthreads();  // the stage buffers are free, part is zeroed
+        if (chunks)
+          stage_rows(stage, gb, xa, min(xb, xa + R), ys, ws, Y, wide);
+        for (int c = 0; c < chunks; ++c) {
+          const int x0 = xa + c * R, x1 = min(xb, x0 + R);
+          if (c + 1 < chunks)
+            stage_rows(stage + ((c + 1) & 1) * BS, gb, x1, min(xb, x1 + R),
+                       ys, ws, Y, wide);
+          else
+            asm volatile("cp.async.commit_group;" ::: "memory");
+          asm volatile("cp.async.wait_group 1;" ::: "memory");
+          __syncthreads();
+          if (tid < ws) {
+            const float2* v = stage + (c & 1) * BS + tid;
+            for (int x = x0; x < x1;) {
+              if (r == 0 && x + s <= x1) {  // a whole run: loads in flight
+#pragma unroll 4
+                for (int k = 0; k < s; ++k) {
+                  const float4 wr = w4[k];
+                  const float2 gv = v[(x - x0 + k) * ws];
+                  fma2(wr.x, gv, c0);
+                  fma2(wr.y, gv, c1);
+                  fma2(wr.z, gv, c2);
+                  fma2(wr.w, gv, c3);
+                }
+                x += s;
+                r = s;
+              } else {  // a run cut by the chunk or the image
+                const float4 wr = w4[r];
+                const float2 gv = v[(x - x0) * ws];
+                fma2(wr.x, gv, c0);
+                fma2(wr.y, gv, c1);
+                fma2(wr.z, gv, c2);
+                fma2(wr.w, gv, c3);
+                ++x;
+                ++r;
+              }
+              if (r == s) {
+                if (q >= i0 && q < i1) col[(q - i0) * W] = c0;
+                c0 = c1;
+                c1 = c2;
+                c2 = c3;
+                c3 = make_float2(0.f, 0.f);
+                r = 0;
+                ++q;
+              }
+            }
+          }
+          __syncthreads();  // buffer (c & 1) is free for chunk c + 2
+        }
+        if (tid < ws) {  // the image ended: the window's sums are complete
+          const float2 rest[4] = {c0, c1, c2, c3};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (q + k >= i0 && q + k < i1) col[(q + k - i0) * W] = rest[k];
+        }
+      }
+      __syncthreads();
+      // pass 2: each (i, j) of the band sums the columns of j's support
+      const int nJ = j1 - j0;
+      const float* w = reinterpret_cast<const float*>(sm4);
+      for (int k = tid; k < nI * nJ; k += ADJOINT_THREADS) {
+        const int il = k / nJ, j = j0 + k - il * nJ;
+        const float2* pr = part + il * W;
+        float ax = 0.f, ay = 0.f;
+        for (int a = 3; a >= 0; --a) {
+          const int y0 = (j - a) * s;
+          const int r0 = max(0, -y0), r1 = min(s, Y - y0);
+#pragma unroll 4
+          for (int r = r0; r < r1; ++r) {
+            const float wt = w[r * 4 + a];
+            const float2 v = pr[y0 + r - ya];
+            ax = fmaf(wt, v.x, ax);
+            ay = fmaf(wt, v.y, ay);
+          }
+        }
+        out[(static_cast<size_t>(blockIdx.x) * Cx + i0 + il) * Cy + j] =
+            make_float2(ax, ay);
       }
     }
-    ob[j] = make_float2(ax, ay);
   }
 }
 
@@ -172,22 +306,28 @@ extern "C" int ukbb_bspline_field(int B, int Cx, int Cy, int X, int Y, int s,
 }
 
 extern "C" int ukbb_bspline_field_adjoint(int B, int Cx, int Cy, int X, int Y,
-                                          int s, const float* table,
+                                          int s, int ni, int nj, int rows,
+                                          int width, const float* table,
                                           const float* grad_field,
                                           float* grad_control, void* stream) {
-  if (bad_shape(B, Cx, Cy, X, Y, s))
+  if (bad_shape(B, Cx, Cy, X, Y, s) || ni < 1 || nj < 1 || rows < 1 ||
+      width < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(4 * s) * sizeof(float) +
-                      static_cast<size_t>(Y) * sizeof(float2);
+  const int slice = width < ADJOINT_THREADS ? width : ADJOINT_THREADS;
+  const size_t smem =
+      static_cast<size_t>(4 * s) * sizeof(float) +
+      (2 * ((static_cast<size_t>(rows) * slice + 1) & ~static_cast<size_t>(1)) +
+       static_cast<size_t>(ni) * width) * sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  adjoint_kernel<<<static_cast<unsigned>(B) * static_cast<unsigned>(Cx),
-                   ADJOINT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      Cx, Cy, X, Y, s, table, reinterpret_cast<const float2*>(grad_field),
+  adjoint_kernel<<<static_cast<unsigned>(B), ADJOINT_THREADS, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      Cx, Cy, X, Y, s, ni, nj, rows, width, table,
+      reinterpret_cast<const float2*>(grad_field),
       reinterpret_cast<float2*>(grad_control));
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,14 @@ import torch
 from ukbb_cardiac_tpu_torch.models import layers as L
 from ukbb_cardiac_tpu_torch.models.fcn import FCN, nchw
 
-# What csrc/fused_head.cu is compiled for (SD, FC, NCP and MAX_LEVEL there).
+# What csrc/fused_head.cu is compiled for (SD, FC, NCP, MAX_LEVEL, TILE
+# and CTILE there).
 KERNEL_SAME_DIM = 32
 KERNEL_FC = 64
 KERNEL_CLASS_PAD = 8
 KERNEL_MAX_LEVEL = 5
+KERNEL_TILE = 128          # level-0 pixels per staged tile
+KERNEL_COARSE_TILE = 64    # coarse-level pixels per staged tile
 
 
 def fold_conv_bn(weight: torch.Tensor, gamma: torch.Tensor,
@@ -50,6 +53,56 @@ def fold_conv_bn(weight: torch.Tensor, gamma: torch.Tensor,
         moving_variance.detach().float() + L.BN_EPSILON)
     bias = beta.detach().float() - moving_mean.detach().float() * scale
     return (W * scale[None, :]).contiguous(), bias
+
+
+# Rows of a chained product's weight within each block of 8: the mma
+# fragment's A column t takes the previous product's C column 2t, and A
+# column t+4 takes C column 2t+1 (csrc/fused_head.cu, "Fragments").
+CHAIN_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: float32 rounded to TF32's 10 mantissa bits,
+    to nearest with ties away from zero (the 13 dropped bits)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_tf32(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """x -> (hi, lo), both TF32 values: hi = rna(x), lo = rna(x - hi)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def weight_fragments(W: np.ndarray, chained: bool) -> np.ndarray:
+    """A (K, N) float32 weight in the order the kernel's m16n8k8 B
+    fragments read it: (K/8, N/8, 32 lanes, 4) with lane 4g + t holding
+    {hi b0, hi b1, lo b0, lo b1}, b0 = W[8kb + r(t), 8nb + g] and
+    b1 = W[8kb + r(t + 4), 8nb + g].  r is the identity for a product fed
+    by staged features and CHAIN_ORDER for one fed by the previous
+    product's accumulators.  K is zero-padded to a multiple of 8; N must
+    be one."""
+    K, N = W.shape
+    if N % 8:
+        raise ValueError(f"fragment columns must be a multiple of 8, got {N}")
+    Kp = -(-K // 8) * 8
+    Wp = np.zeros((Kp, N), np.float32)
+    Wp[:K] = W
+    if chained:
+        Wp = Wp.reshape(Kp // 8, 8, N)[:, CHAIN_ORDER].reshape(Kp, N)
+    hi, lo = split_tf32(Wp)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    kb, nb = np.arange(Kp // 8), np.arange(N // 8)
+    rows = kb[:, None, None] * 8 + t[None, None, :]          # (KB, 1, 32)
+    cols = nb[None, :, None] * 8 + g[None, None, :]          # (1, NB, 32)
+    return np.stack([hi[rows, cols], hi[rows + 4, cols],
+                     lo[rows, cols], lo[rows + 4, cols]], axis=-1)
 
 
 @dataclass
@@ -84,25 +137,33 @@ class HeadWeights:
 
     def packed(self, device) -> torch.Tensor:
         """One float32 buffer in the order ``csrc/fused_head.cu`` reads:
-        the head block [Wsd_0, bsd_0, W1_0, b1, W2, b2, Wout, bout] (the
-        class axis zero-padded to KERNEL_CLASS_PAD), then
-        [Wsd_l, bsd_l, W1_l] for each coarse level l = 1 .. n_level-1,
-        where W1_l is fc1's (same_dim, fc) block of rows for level l."""
+        the head block [Wsd_0, W1_0, W2, Wout] as tensor-core fragments
+        (:func:`weight_fragments`; the chained products' rows permuted),
+        then [bsd_0, b1, b2, bout] (the class axis zero-padded to
+        KERNEL_CLASS_PAD); then [Wsd_l, W1_l] as fragments and bsd_l for
+        each coarse level l = 1 .. n_level-1, where W1_l is fc1's
+        (same_dim, fc) block of rows for level l."""
         key = ("packed", str(device))
         if key not in self._dev:
             nc, pad = self.n_class, KERNEL_CLASS_PAD
-            Wout = torch.zeros(self.Wout.shape[0], pad)
-            Wout[:, :nc] = self.Wout.cpu()
-            bout = torch.zeros(pad)
-            bout[:nc] = self.bout.cpu()
+            Wout = np.zeros((self.Wout.shape[0], pad), np.float32)
+            Wout[:, :nc] = _np(self.Wout)
+            bout = np.zeros(pad, np.float32)
+            bout[:nc] = _np(self.bout)
             sd = self.same_dim
-            parts = [self.Wsd[0], self.bsd[0], self.W1[:sd], self.b1,
-                     self.W2, self.b2, Wout, bout]
+            W1 = _np(self.W1)
+            parts = [weight_fragments(_np(self.Wsd[0]), chained=False),
+                     weight_fragments(W1[:sd], chained=True),
+                     weight_fragments(_np(self.W2), chained=True),
+                     weight_fragments(Wout, chained=True),
+                     _np(self.bsd[0]), _np(self.b1), _np(self.b2), bout]
             for l in range(1, self.n_level):
-                parts += [self.Wsd[l], self.bsd[l],
-                          self.W1[l * sd:(l + 1) * sd]]
-            flat = torch.cat([p.cpu().float().reshape(-1) for p in parts])
-            self._dev[key] = flat.to(device)
+                parts += [weight_fragments(_np(self.Wsd[l]), chained=False),
+                          weight_fragments(W1[l * sd:(l + 1) * sd],
+                                           chained=True),
+                          _np(self.bsd[l])]
+            flat = np.concatenate([p.reshape(-1) for p in parts])
+            self._dev[key] = torch.from_numpy(flat).to(device)
         return self._dev[key]
 
     def taps(self, X: int, Y: int, device) -> Tuple[torch.Tensor,
@@ -213,7 +274,9 @@ def _check_kernel_shapes(feats, w: HeadWeights) -> None:
 
 def fused_head(feats: Sequence[torch.Tensor], w: HeadWeights) -> torch.Tensor:
     """Fused head: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors.  ``fused_head.launches`` counts kernel launches."""
+    CPU tensors.  ``fused_head.launches`` counts kernel launches: a call
+    launches one ``coarse_kernel`` per coarse level and one
+    ``head_kernel``, ``n_level`` in all."""
     _check(feats, w)
     dev = feats[0].device
     if dev.type == "cpu":
@@ -244,7 +307,7 @@ def fused_head(feats: Sequence[torch.Tensor], w: HeadWeights) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"fused_head kernel failed: CUDA error {rc} "
                            f"({kernels.error_string(lib, rc)})")
-    fused_head.launches += 1
+    fused_head.launches += w.n_level
     return out
 
 

@@ -11,7 +11,8 @@ one ``torch.autograd.Function`` covers both directions for a batch:
   CPU tensors;
 - backward (B, X, Y, 2) → (B, Cx, Cy, 2), ``Bxᵀ G By``
   (:func:`bspline_field_adjoint`): the kernel's ``adjoint_kernel``
-  (deterministic, no atomics) on CUDA tensors,
+  (one block per pair over the bands :func:`adjoint_plan` lays out;
+  deterministic, no atomics) on CUDA tensors,
   :func:`bspline_adjoint_plain` on CPU tensors.
 
 Nothing falls back from CUDA to the plain version.  Both kernels are bound
@@ -22,6 +23,7 @@ kernel launches.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -41,9 +43,58 @@ def weight_table(spacing: int, device) -> torch.Tensor:
     return _TABLES[key]
 
 
+# The adjoint's shared memory for its partial sums and two staged chunks:
+# up to two blocks per SM.  A band that cannot fit one row of each takes up
+# to the most a block may have (227 KB), less the weight table.  Pass 1
+# gives each of the block's threads one column of a slice.
+ADJOINT_SMEM_BUDGET = 96 * 1024
+ADJOINT_SMEM_MAX = 227 * 1024
+ADJOINT_THREADS = 256
+ADJOINT_CHUNK_ROWS = 40
+
+
+def _band_extent(n_ctl: int, band: int, dim: int, spacing: int) -> int:
+    """Pixels of the widest support of ``band`` consecutive controls."""
+    return max(min(dim, (c0 + band) * spacing) - max(0, (c0 - 3) * spacing)
+               for c0 in range(0, n_ctl, band))
+
+
+@lru_cache(maxsize=None)
+def adjoint_plan(lattice: Tuple[int, int], image_shape: Tuple[int, int],
+                 spacing: int) -> Tuple[int, int, int, int]:
+    """How ``adjoint_kernel`` walks one pair: (ni, nj, rows, width) —
+    control rows and columns per band, cotangent rows per staged chunk,
+    and the widest band's columns.  The whole lattice is one band when its
+    partial sums fit half of ADJOINT_SMEM_BUDGET; the rows then come in
+    chunks, so every cotangent byte is read once.  Bands share the 3s rows
+    or columns between them, which are read once per band."""
+    (Cx, Cy), (X, Y), s = lattice, image_shape, spacing
+    budget = ADJOINT_SMEM_BUDGET
+
+    def need(width, ni, rows):  # bytes of partial sums and two chunks
+        return 8 * (ni * width + 2 * rows * min(width, ADJOINT_THREADS))
+
+    nj = Cy
+    while nj > 1 and need(_band_extent(Cy, nj, Y, s), 1, 1) > budget:
+        nj = (nj + 1) // 2
+    width = max(_band_extent(Cy, nj, Y, s), 1)
+    if need(width, 1, 1) > budget:
+        budget = ADJOINT_SMEM_MAX - 16 * s - 16
+        if need(width, 1, 1) > budget:
+            raise ValueError(f"spacing {spacing}: one band of the adjoint "
+                             f"does not fit in shared memory")
+    ni = min(Cx, max(1, budget // 2 // (8 * width)))
+    rows = (budget - 8 * ni * width) // (16 * min(width, ADJOINT_THREADS))
+    extent = max(_band_extent(Cx, ni, X, s), 1)
+    rows = max(1, min(rows, max(ADJOINT_CHUNK_ROWS, s)))
+    if s < rows < extent:  # whole runs of s rows per chunk
+        rows -= rows % s
+    return ni, nj, min(rows, extent), width
+
+
 def _launch(symbol: str, src: torch.Tensor, out: torch.Tensor,
             lattice: Tuple[int, int], image_shape: Tuple[int, int],
-            spacing: int) -> None:
+            spacing: int, *plan: int) -> None:
     from ukbb_cardiac_tpu_torch import kernels
 
     lib = kernels.load("bspline_field")
@@ -56,8 +107,9 @@ def _launch(symbol: str, src: torch.Tensor, out: torch.Tensor,
     table = weight_table(spacing, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, symbol)(B, Cx, Cy, X, Y, spacing, table.data_ptr(),
-                                  src.data_ptr(), out.data_ptr(), stream)
+        rc = getattr(lib, symbol)(B, Cx, Cy, X, Y, spacing, *plan,
+                                  table.data_ptr(), src.data_ptr(),
+                                  out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {rc} "
                            f"({kernels.error_string(lib, rc)})")
@@ -98,7 +150,7 @@ def bspline_field_adjoint(grad: torch.Tensor, lattice: Tuple[int, int],
                       device=grad.device)
     if B:
         _launch("ukbb_bspline_field_adjoint", grad, out, lattice, (X, Y),
-                spacing)
+                spacing, *adjoint_plan(tuple(lattice), (X, Y), spacing))
         bspline_field.adjoint_launches += 1
     return out
 
