@@ -13,10 +13,14 @@
      and registers, its tensor-core (3xTF32) bound beside the float32
      CUDA-core bound, and its coarse / head kernels' device times under
      torch.profiler;
-   - the B-spline lattice → field synthesis and its adjoint at B = 150
-     registration pairs, at each pyramid level of ``RegConfig.
-     cine_2d_motion()`` (24^2 / 6x6, 48^2 / 8x8, 96^2 / 13x13, spacing 10)
-     and the coarse-lattice densify (6x6 at 96^2, spacing 40);
+   - the head with the trained LA bundles (2, 3 and 6 classes) at the LA
+     deploys' (50, 192, 208);
+   - the B-spline lattice → field synthesis and its adjoint at every
+     shape of the strain paths: B = 150 SA pairs on the 96^2 bucket
+     (24^2 / 6x6, 48^2 / 8x8, 96^2 / 13x13 at spacing 10, and the coarse
+     levels densified at spacing 20 and 40) and B = 50 LA pairs on the
+     128^2 bucket (32^2 / 7x7, 64^2 / 10x10, 128^2 / 16x16, and the same
+     densifies);
 3. drives the main path as a user would: writes 3 phantom subjects
    (192, 208, 10, 50) int16, runs the port's SA deploy
    (``infer.deploy.deploy_dataset``) and ventricular-volume evaluation on
@@ -30,14 +34,28 @@
    prints per subject the strain wall and device span, pairs, crop,
    global Ecc/Err and warp-Dice, and compares the card's strain tables
    with the port's CPU path on a reduced subject (6 frames);
-5. prints the card's name and power limit, one JSON line of kernel
-   figures, and, last, ``{"ok": true, "device": {...}}``.
+5. drives the cohort CLI (``cli.run_cohort``) in full mode — the SA
+   chain, then the la_2ch / la_4ch / seg4 deploys with the trained LA
+   bundles (2, 3 and 6 classes), atrial volumes and LA strain — on 3
+   full-size subjects (SA (192, 208, 10, 50), LA (192, 208, 1, 50)
+   int16), with 1 worker (the default), then with 3 on the shared default
+   stream and on a stream per worker (shared, own, own, shared); prints
+   for each run the cohort wall, subjects/s, median stage seconds and
+   launches per subject, head launches by number of classes; checks
+   every subject, the aggregate tables, LA Dice against the truth, LA
+   labels and the atrial row of the port's CPU deploy against the card's,
+   and the card's LA strain against the CPU's on a reduced subject;
+   prints one subject's LA strain alone (launches, device span) and each
+   LA cine's device span;
+6. prints the card's name and power limit, one JSON line of kernel
+   figures (launches from the 1-worker cohort run), and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card (``torch.cuda.is_available()`` false) it exits 1 at once.  The
-weights are the repo's trained ``tests/fixtures/bench_weights/FCN_sa.npz``
-(full widths, 5 levels); the phantoms and the kernels' test inputs come
-from fixed seeds.
+weights are the repo's trained ``tests/fixtures/bench_weights/FCN_*.npz``
+bundles (full widths, 5 levels); the phantoms and the kernels' test
+inputs come from fixed seeds.
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -68,11 +87,42 @@ KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # the adjoint sums up to (4s)^2 products per control
 FIELD_ATOL, ADJOINT_ATOL = 1e-5, 1e-4
 N_PAIRS = 150                        # 3 slices x 50 frames, inverse-consistent
-# (image side, lattice side, spacing) of every synthesis on the strain path
-BSPLINE_CASES = [(24, 6, 10), (48, 8, 10), (96, 13, 10), (96, 6, 40)]
+N_LA_PAIRS = 50                      # one 4-chamber slice x 50 frames
+LA_BUCKET = 128                      # the LA LV crop, bucketed to 64s
+# (pairs, image side, lattice side, spacing) of every synthesis on the
+# strain paths: SA on its 96^2 bucket, LA on 128^2; per pyramid level the
+# Adam lattice (spacing 10, forward and adjoint), then the finished coarse
+# levels densified at the finer ones (spacing 20 and 40)
+BSPLINE_CASES = [
+    (N_PAIRS, 24, 6, 10), (N_PAIRS, 48, 8, 10), (N_PAIRS, 96, 13, 10),
+    (N_PAIRS, 48, 6, 20), (N_PAIRS, 96, 6, 40), (N_PAIRS, 96, 8, 20),
+    (N_LA_PAIRS, 32, 7, 10), (N_LA_PAIRS, 64, 10, 10),
+    (N_LA_PAIRS, LA_BUCKET, 16, 10), (N_LA_PAIRS, 64, 7, 20),
+    (N_LA_PAIRS, LA_BUCKET, 7, 40), (N_LA_PAIRS, LA_BUCKET, 10, 20)]
 # card vs CPU strain on a reduced subject: the bounds the CPU parity tests
 # hold the port to against the JAX package (tests/test_torch_strain.py)
 STRAIN_SEGMENT_ATOL, STRAIN_GLOBAL_ATOL, DICE_ATOL = 2.0, 0.5, 0.005
+# the cohort: the trained LA bundles (2, 3 and 6 classes), the world
+# affines of tests/test_cohort.py, and the LA strain bounds of
+# tests/test_torch_la.py
+WEIGHTS = os.path.join(ROOT, "tests", "fixtures", "bench_weights")
+LA_BUNDLES = {"la_2ch": "FCN_la_2ch.npz", "la_4ch": "FCN_la_4ch.npz",
+              "seg4": "FCN_la_4ch_seg4.npz"}
+AFFINE_SA = np.array([[-1.8, 0, 0, 80.0], [0, -1.8, 0, 90.0],
+                      [0, 0, 10.0, -40.0], [0, 0, 0, 1.0]])
+AFFINE_LA = np.array([[-1.8, 0, 0, 80.0], [0, 0, 10.0, 0.0],
+                      [0, -1.8, 0, 90.0], [0, 0, 0, 1.0]])
+LA_STRAIN_SEGMENT_ATOL, LA_STRAIN_GLOBAL_ATOL = 1.5, 0.3
+ATRIAL_RTOL = 1e-6                   # the CPU tests' bound on atrial rows
+COHORT_STAGES = ("segment", "volumes", "wall_thickness", "strain",
+                 "segment_la", "atrial_volumes", "strain_la")
+# aggregate CSVs of a full-mode cohort: (rows, columns) per table
+COHORT_TABLES = {"table_ventricular_volume.csv": 12,
+                 "table_wall_thickness.csv": 17,
+                 "table_wall_thickness_max.csv": 17,
+                 "table_strain_sax.csv": 34,
+                 "table_atrial_volume.csv": 8,
+                 "table_strain_lax.csv": 7}
 
 
 def card_line() -> str:
@@ -203,6 +253,96 @@ def write_subjects(data_dir, nifti):
     return truth
 
 
+def _la_scale(T, amp=0.3):
+    """Atria fill as the ventricles contract: 2 - the SA contraction."""
+    return 1.0 + amp * np.sin(np.pi * np.arange(T) / float(T)) ** 2
+
+
+def la_phantom(X, Y, T, r_la, amp=0.3, noise=0.05, rng=None):
+    """2-chamber LA cine, one slice (tests/phantom.py::la_phantom with
+    n_class=2): the LA disk, largest mid-cycle.  Returns (image int16,
+    seg int16) of shape (X, Y, 1, T)."""
+    rng = rng or np.random.RandomState(1)
+    cx, cy = X // 2, Y // 2
+    scale = _la_scale(T, amp)
+    image = np.zeros((X, Y, 1, T), np.float32)
+    seg = np.zeros((X, Y, 1, T), np.int16)
+    off = max(12, int(math.ceil(r_la * 2.0 * 0.6)))
+    for t in range(T):
+        la = _disk(X, Y, cx - off, cy, r_la * scale[t])
+        seg[:, :, 0, t][la] = 1
+        img = np.zeros((X, Y), np.float32)
+        img[la] = 750.0
+        img += rng.randn(X, Y).astype(np.float32) * noise * 1000.0
+        image[:, :, 0, t] = np.clip(img, 0, 1000)
+    return np.round(image).astype(np.int16), seg
+
+
+def seg4_la_phantom(X, Y, T, zoom, amp=0.3, noise=0.05, rng=None):
+    """4-chamber LA cine, one slice, with LV, Myo, RV, LA and RA (labels
+    1-5; tests/phantom.py::seg4_la_phantom), every radius and offset
+    scaled by ``zoom``.  Returns (image int16, seg int16)."""
+    rng = rng or np.random.RandomState(2)
+    cx, cy = X // 2, Y // 2
+    scale = 2.0 - _la_scale(T, amp)
+    image = np.zeros((X, Y, 1, T), np.float32)
+    seg = np.zeros((X, Y, 1, T), np.int16)
+    z = zoom
+    for t in range(T):
+        r = 11.0 * z * scale[t]
+        lv = _disk(X, Y, cx - 10 * z, cy - 12 * z, r)
+        epi = _disk(X, Y, cx - 10 * z, cy - 12 * z, r + 4 * z)
+        rv = _disk(X, Y, cx + 14 * z, cy - 12 * z, r * 0.9) & ~epi
+        la = _disk(X, Y, cx - 10 * z, cy + 16 * z,
+                   8.0 * z * (2.0 - scale[t])) & ~epi
+        ra = _disk(X, Y, cx + 14 * z, cy + 16 * z,
+                   7.0 * z * (2.0 - scale[t])) & ~(epi | la | rv)
+        sl = np.zeros((X, Y), np.int16)
+        sl[rv], sl[epi & ~lv], sl[lv], sl[la], sl[ra] = 3, 2, 1, 4, 5
+        seg[:, :, 0, t] = sl
+        img = np.zeros((X, Y), np.float32)
+        for lab, inten in ((1, 800), (2, 300), (3, 700), (4, 750), (5, 650)):
+            img[sl == lab] = inten
+        img += rng.randn(X, Y).astype(np.float32) * noise * 1000.0
+        image[:, :, 0, t] = np.clip(img, 0, 1000)
+    return np.round(image).astype(np.int16), seg
+
+
+def save_nifti(nifti, path, data, affine, dt=0.04):
+    hdr = nifti.Nifti1Header()
+    hdr.dim[0] = data.ndim
+    hdr.dim[1:1 + data.ndim] = data.shape
+    hdr.pixdim[1:4] = (1.8, 1.8, 10.0)
+    if data.ndim == 4:
+        hdr.pixdim[4] = dt
+    nifti.save(nifti.Nifti1Image(data, affine, hdr), path)
+
+
+def write_cohort(data_dir, nifti, T):
+    """Complete subjects for the cohort (the construction of the JAX
+    package's bench cohort): an SA cine (192, 208, 10, T) with r_lv 30,
+    wall 10; one 4-chamber cine (zoom 2) that la_4ch and seg4 both read; a
+    2-chamber cine (r_la 20); int16, world-consistent SA and LA affines.
+    Returns {subject: {"la_2ch", "la_4ch", "seg4": truth labels}}."""
+    X, Y, Z = MAIN_SHAPE[:3]
+    truth = {}
+    for i in range(N_SUBJECTS):
+        rng = np.random.RandomState(20 + i)
+        subject = f"{2000000 + i}"
+        d = os.path.join(data_dir, subject)
+        os.makedirs(d)
+        sa, _ = sax_phantom(X, Y, Z, T, r_lv=30.0, wall=10.0, rng=rng)
+        la4, seg4 = seg4_la_phantom(X, Y, T, zoom=2.0, rng=rng)
+        la2, seg2 = la_phantom(X, Y, T, r_la=20.0, rng=rng)
+        save_nifti(nifti, os.path.join(d, "sa.nii.gz"), sa, AFFINE_SA)
+        save_nifti(nifti, os.path.join(d, "la_4ch.nii.gz"), la4, AFFINE_LA)
+        save_nifti(nifti, os.path.join(d, "la_2ch.nii.gz"), la2, AFFINE_LA)
+        seg_la4 = np.zeros_like(seg4)
+        seg_la4[seg4 == 4], seg_la4[seg4 == 5] = 1, 2
+        truth[subject] = {"la_2ch": seg2, "la_4ch": seg_la4, "seg4": seg4}
+    return truth
+
+
 def dice(a, b, label):
     a, b = a == label, b == label
     return 2.0 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1)
@@ -211,7 +351,7 @@ def dice(a, b, label):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/5] build", flush=True)
+    print("[1/6] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -272,8 +412,33 @@ def ptxas_registers(build):
     return out
 
 
+def head_vs_plain(fh, feats, head, dtype) -> float:
+    """The head kernel against its plain version on the same features:
+    max |kernel - plain| within KERNEL_ATOL, and argmax equal except at
+    near-ties.  Returns the error; raises on a miss."""
+    got = fh.fused_head(feats, head)
+    torch.cuda.synchronize()
+    ref = fh.fused_head_plain(feats, head)
+    err = (got - ref).abs().max().item()
+    if not math.isfinite(err) or err > KERNEL_ATOL[dtype]:
+        raise AssertionError(f"fused_head {dtype}, {head.n_class} classes: "
+                             f"max |kernel - plain| = {err} > "
+                             f"{KERNEL_ATOL[dtype]}")
+    differ = got.argmax(1) != ref.argmax(1)
+    top2 = ref.topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1])
+    not_tie = int((differ & (margin > 2 * err)).sum())
+    print(f"  {dtype}, {head.n_class} classes: max |kernel - plain| = "
+          f"{err:.3e} (atol {KERNEL_ATOL[dtype]}); argmax differs at "
+          f"{int(differ.sum())} of {differ.numel()} pixels, {not_tie} of "
+          f"them not near-ties")
+    if not_tie:
+        raise AssertionError("argmax differs away from near-ties")
+    return err
+
+
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/5] fused head vs its plain version at the main path's shapes",
+    print("[2/6] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -289,23 +454,7 @@ def kernel_phase(card, fh, tfcn, model, build):
         for dtype in (torch.float32, torch.bfloat16):
             xin = tfcn.nchw(x, dtype)
             feats = net.encode(xin)
-            got = fh.fused_head(feats, head)
-            torch.cuda.synchronize()
-            ref = fh.fused_head_plain(feats, head)
-            err = (got - ref).abs().max().item()
-            if not math.isfinite(err) or err > KERNEL_ATOL[dtype]:
-                raise AssertionError(f"fused_head {dtype}: max |kernel - "
-                                     f"plain| = {err} > {KERNEL_ATOL[dtype]}")
-            differ = got.argmax(1) != ref.argmax(1)
-            top2 = ref.topk(2, dim=1).values
-            margin = (top2[:, 0] - top2[:, 1])
-            not_tie = int((differ & (margin > 2 * err)).sum())
-            print(f"  {dtype}: max |kernel - plain| = {err:.3e} "
-                  f"(atol {KERNEL_ATOL[dtype]}); argmax differs at "
-                  f"{int(differ.sum())} of {differ.numel()} pixels, "
-                  f"{not_tie} of them not near-ties")
-            if not_tie:
-                raise AssertionError("argmax differs away from near-ties")
+            err = head_vs_plain(fh, feats, head, dtype)
             ms = cuda_ms(lambda: fh.fused_head(feats, head))
             plain_ms = cuda_ms(lambda: fh.fused_head_plain(feats, head))
             enc_ms = cuda_ms(lambda: net.encode(xin))
@@ -326,6 +475,32 @@ def kernel_phase(card, fh, tfcn, model, build):
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
     return result[torch.float32]
+
+
+def la_head_phase(card, fh, tfcn, deploy):
+    """The head with the trained LA bundles (2, 3 and 6 classes, padded to
+    the kernel's 8 inside it) against its plain version at the LA
+    deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
+    X, Y, _, T = MAIN_SHAPE
+    print(f"[2/6] fused head with the LA bundles vs its plain version at "
+          f"({T}, {X}, {Y})", flush=True)
+    rng = np.random.RandomState(9)
+    cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
+    cines["la_4ch"] = cines["seg4"] = seg4_la_phantom(X, Y, T, zoom=2.0,
+                                                      rng=rng)[0]
+    for key, path in LA_BUNDLES.items():
+        model = deploy.load_segmentation_model(os.path.join(WEIGHTS, path),
+                                               "cuda")
+        slices = np.transpose(cines[key], (3, 2, 0, 1)).reshape(T, X, Y, 1)
+        x = torch.from_numpy(slices.astype(np.float32) / 1000.0).cuda()
+        with torch.inference_mode():
+            feats = model.net.encode(tfcn.nchw(x, torch.float32))
+            print(f"  {key}:", end="")
+            head_vs_plain(fh, feats, model.head, torch.float32)
+            ms = cuda_ms(lambda: fh.fused_head(feats, model.head))
+            plain_ms = cuda_ms(lambda: fh.fused_head_plain(feats, model.head))
+        print(f"  {key} at {tuple(feats[0].shape)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms [{card}]")
 
 
 def bspline_taps(tb, spacing: int, device) -> torch.Tensor:
@@ -366,14 +541,14 @@ def bspline_phase(card, tb, bf):
     the strain path; times at the finest level go into the kernels line."""
     import torch.nn.functional as F
 
-    print("[2/5] B-spline synthesis and adjoint vs their plain versions, "
-          f"B = {N_PAIRS}", flush=True)
+    print("[2/6] B-spline synthesis and adjoint vs their plain versions, "
+          f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
     rng = np.random.RandomState(11)
     result = {}
-    for X, C, s in BSPLINE_CASES:
-        c = torch.from_numpy(rng.randn(N_PAIRS, C, C, 2).astype(
+    for B, X, C, s in BSPLINE_CASES:
+        c = torch.from_numpy(rng.randn(B, C, C, 2).astype(
             np.float32)).cuda()
-        G = torch.from_numpy(rng.randn(N_PAIRS, X, X, 2).astype(
+        G = torch.from_numpy(rng.randn(B, X, X, 2).astype(
             np.float32)).cuda()
         cr = c.clone().requires_grad_(True)
         field = bf.bspline_field(cr, (X, X), s)
@@ -386,7 +561,7 @@ def bspline_phase(card, tb, bf):
         err_adj = (cr.grad - plain_adj).abs().max().item()
         if not err <= FIELD_ATOL or not err_adj <= ADJOINT_ATOL:
             raise AssertionError(
-                f"bspline at {X}^2/{C}x{C}/s{s}: max |kernel - plain| "
+                f"bspline B={B} at {X}^2/{C}x{C}/s{s}: max |kernel - plain| "
                 f"{err} (atol {FIELD_ATOL}), adjoint {err_adj} "
                 f"(atol {ADJOINT_ATOL})")
         W = bspline_taps(tb, s, c.device)
@@ -424,10 +599,10 @@ def bspline_phase(card, tb, bf):
                         G, (C, C), s)),
                     "library_ms": graph_ms(lib_adj),
                     "max_abs_err": err_adj}}
-        bounds = bspline_bounds(N_PAIRS, C, X, s)
+        bounds = bspline_bounds(B, C, X, s)
         for name, t in times.items():
             t["bound_ms"], t["bound_by"] = bounds[name]
-            print(f"  {name} {X}^2 lattice {C}x{C} s={s}: max |kernel - "
+            print(f"  {name} B={B} {X}^2 lattice {C}x{C} s={s}: max |kernel - "
                   f"plain| {t['max_abs_err']:.3e}; kernel {t['ms']:.5f} ms "
                   f"(graph replay; eager {t['eager_ms']:.5f} ms), plain "
                   f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
@@ -435,14 +610,14 @@ def bspline_phase(card, tb, bf):
                   f"[{card}]")
         print(f"  yardstick vs plain: conv_transpose2d {lib_err.item():.3e}, "
               f"conv2d {lib_err_adj.item():.3e}")
-        if (X, C, s) == (96, 13, 10):
+        if (B, X, C, s) == (N_PAIRS, 96, 13, 10):
             result = times
     return result
 
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/5] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/6] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -530,7 +705,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/5] main path: wall thickness + SA strain "
+    print(f"[4/6] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -696,6 +871,240 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
     return launches
 
 
+def per_worker_streams(cohort_mod):
+    """Patch ``cohort_mod.process_subject_full`` so that each worker
+    thread runs its subjects on a CUDA stream of its own (the cohort
+    driver issues every worker's work on the default stream).  Returns
+    the function to restore."""
+    inner = cohort_mod.process_subject_full
+    local = threading.local()
+
+    def on_own_stream(*args, **kwargs):
+        stream = getattr(local, "stream", None)
+        if stream is None:
+            stream = local.stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            return inner(*args, **kwargs)
+
+    cohort_mod.process_subject_full = on_own_stream
+    return inner
+
+
+def cohort_phase(card, work):
+    """The port's cohort CLI in full mode (SA chain, then the three LA
+    deploys, atrial volumes and LA strain) over N_SUBJECTS full-size
+    subjects as a user runs it: with 1 worker (the default), then with 3
+    workers on the shared default stream and on a stream per worker,
+    in the order shared, own, own, shared; then the LA outputs held
+    against the truth and against the port's CPU path.  Returns the
+    kernels' launches in the 1-worker run."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.cli import run_cohort
+    from ukbb_cardiac_tpu_torch.infer import deploy
+    from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.models import fused_head as fh
+    from ukbb_cardiac_tpu_torch.parallel import cohort as cohort_mod
+    from ukbb_cardiac_tpu_torch.phenotype import atrium, strain_la
+    from ukbb_cardiac_tpu_torch.phenotype.strain import bucket_hw
+    from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
+    from ukbb_cardiac_tpu_torch.reg.register import RegConfig
+
+    T = MAIN_SHAPE[3]
+    print(f"[5/6] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4) "
+          f"on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
+          f"{MAIN_SHAPE[:2] + (1, T)} int16, workers 1 and 3", flush=True)
+    data_dir = os.path.join(work, "cohort")
+    truth = write_cohort(data_dir, nifti, T)
+    args = ["--data_dir", data_dir, "--model_path", BUNDLE,
+            "--model_path_la_2ch", os.path.join(WEIGHTS, LA_BUNDLES["la_2ch"]),
+            "--model_path_la_4ch", os.path.join(WEIGHTS, LA_BUNDLES["la_4ch"]),
+            "--model_path_seg4", os.path.join(WEIGHTS, LA_BUNDLES["seg4"]),
+            "--device", "cuda", "--force"]
+    runs = [(1, "default stream"), (3, "default stream"),
+            (3, "stream per worker"), (3, "stream per worker"),
+            (3, "default stream")]
+    first = None
+    for i, (workers, streams) in enumerate(runs):
+        tag = f"run {i + 1}, workers {workers}, {streams}"
+        out = os.path.join(work, f"cohort_csv_{i}")
+        manifest = os.path.join(work, f"cohort_{i}.json")
+        fh.fused_head.launches = 0
+        fh.fused_head.launches_by_class = {}
+        bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
+        inner = (per_worker_streams(cohort_mod)
+                 if streams == "stream per worker" else None)
+        try:
+            rc = run_cohort.main(args + ["--workers", str(workers),
+                                         "--output_dir", out,
+                                         "--manifest", manifest])
+        finally:
+            if inner is not None:
+                cohort_mod.process_subject_full = inner
+        launches = {"fused_head": fh.fused_head.launches,
+                    "bspline_field": bf.bspline_field.launches,
+                    "bspline_field_adjoint": bf.bspline_field.adjoint_launches,
+                    "by_class": dict(sorted(
+                        fh.fused_head.launches_by_class.items()))}
+        first = first or launches
+        with open(manifest) as f:
+            m = json.load(f)
+        wall = m["wall_seconds"]
+        median = {k: float(np.median([st[k] for st in
+                                      m["stage_seconds"].values()]))
+                  for k in COHORT_STAGES}
+        print(f"  {tag}: cohort wall {wall:.3f} s, "
+              f"{len(m['succeeded']) / wall:.4f} subjects/s [{card}]")
+        print(f"  {tag}: median stage s over subjects: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
+              + f" [{card}]")
+        print(f"  {tag}: launches per subject: fused_head "
+              f"{launches['fused_head'] / N_SUBJECTS:g} (by classes "
+              + ", ".join(f"{c}: {n / N_SUBJECTS:g}"
+                          for c, n in launches["by_class"].items())
+              + f"), bspline_field "
+              f"{launches['bspline_field'] / N_SUBJECTS:g}, adjoint "
+              f"{launches['bspline_field_adjoint'] / N_SUBJECTS:g}")
+        if rc != 0 or len(m["succeeded"]) != N_SUBJECTS or m["failed"]:
+            raise AssertionError(f"cohort {tag}: rc {rc}, "
+                                 f"failed {m['failed']}")
+        if not all(
+                launches[k] > 0 for k in ("fused_head", "bspline_field",
+                                          "bspline_field_adjoint")):
+            raise AssertionError(f"cohort {tag} launched a kernel no "
+                                 f"time: {launches}")
+        if not {2, 3, 4, 6} <= set(launches["by_class"]):
+            raise AssertionError(f"cohort {tag}: head launches by classes "
+                                 f"{launches['by_class']}: want 2, 3, 4 "
+                                 f"and 6")
+        for name, n_col in COHORT_TABLES.items():
+            tab = pd.read_csv(os.path.join(out, name), index_col=0)
+            if tab.shape != (N_SUBJECTS, n_col) or not np.isfinite(
+                    tab.values.astype(float)).all():
+                raise AssertionError(f"{name}: shape {tab.shape}, want "
+                                     f"{(N_SUBJECTS, n_col)}, or not finite")
+    launches = first
+
+    # the deployed LA labels against the phantom truth
+    prefix = {"la_2ch": "seg_la_2ch", "la_4ch": "seg_la_4ch",
+              "seg4": "seg4_la_4ch"}
+    for subject, tr in truth.items():
+        d = []
+        for key, seg_true in tr.items():
+            seg = np.asarray(nifti.load(os.path.join(
+                data_dir, subject, f"{prefix[key]}.nii.gz")).dataobj)
+            d += [dice(seg, seg_true, k)
+                  for k in range(1, int(seg_true.max()) + 1)]
+        print(f"  subject {subject}: Dice la_2ch LA {d[0]:.4f}; la_4ch LA/RA "
+              f"{d[1]:.4f}/{d[2]:.4f}; seg4 LV/Myo/RV/LA/RA "
+              + "/".join(f"{v:.4f}" for v in d[3:]))
+        if min(d) < 0.9:
+            raise AssertionError(f"subject {subject}: LA Dice {d}")
+
+    # one subject's LA deploys on the port's CPU path, written as the
+    # cohort writes them: labels and the atrial row against the card's
+    subj = os.path.join(data_dir, sorted(truth)[0])
+    cpu_root = os.path.join(work, "la_cpu")
+    cpu_subj = os.path.join(cpu_root, os.path.basename(subj))
+    os.makedirs(cpu_subj)
+    for name in ("sa", "la_2ch", "la_4ch"):
+        shutil.copy(os.path.join(subj, f"{name}.nii.gz"), cpu_subj)
+    for key, path in LA_BUNDLES.items():
+        seq = "la_2ch" if key == "la_2ch" else "la_4ch"
+        deploy.deploy_dataset(os.path.join(WEIGHTS, path), cpu_root,
+                              seq_name=seq, seg4=key == "seg4",
+                              device="cpu")
+        seg_card, seg_cpu = (np.asarray(nifti.load(os.path.join(
+            d, f"{prefix[key]}.nii.gz")).dataobj) for d in (subj, cpu_subj))
+        agree = float((seg_cpu == seg_card).mean())
+        # each LA cine's device span on the card
+        cine = np.asarray(nifti.load(os.path.join(
+            subj, f"{seq}.nii.gz")).dataobj)
+        eng = InferenceEngine(deploy.load_segmentation_model(
+            os.path.join(WEIGHTS, path), "cuda"))
+        pending = eng.segment_sequence_dispatch(cine)
+        pending.result()
+        print(f"  {key} {cine.shape}: card vs CPU label agreement "
+              f"{agree:.6f}; device span per cine {pending.device_ms:.4f} ms "
+              f"[{card}]")
+        if agree < 0.999:
+            raise AssertionError(f"{key}: card and CPU labels agree on only "
+                                 f"{agree}")
+    # the table of the last run, which wrote the segs on disk
+    tab = pd.read_csv(os.path.join(work, f"cohort_csv_{len(runs) - 1}",
+                                   "table_atrial_volume.csv"), index_col=0)
+    card_row = tab.loc[int(os.path.basename(subj))].values
+    cpu_row = np.array(list(atrium.atrial_volume_measures(cpu_subj).values()))
+    rel = np.abs(card_row - cpu_row).max() / np.abs(cpu_row).max()
+    print(f"  atrial row {os.path.basename(subj)}: card "
+          f"{np.round(card_row, 4).tolist()}, from the CPU's segs "
+          f"{np.round(cpu_row, 4).tolist()}; max difference {rel:.3e} of "
+          f"the largest (bound {ATRIAL_RTOL})")
+    if not np.allclose(card_row, cpu_row, rtol=ATRIAL_RTOL, atol=0):
+        raise AssertionError(f"atrial rows differ: {card_row} vs {cpu_row}")
+
+    # one subject's LA strain alone on the card: launches, wall, device span
+    cfg = RegConfig()
+    motion = os.path.join(subj, "la_motion_alone")
+    os.makedirs(motion)
+    before = (bf.bspline_field.launches, bf.bspline_field.adjoint_launches)
+    t0 = time.perf_counter()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    ctx = strain_la.start_la_motion_dispatch(subj, motion, cfg,
+                                             eval_dice=True, device="cuda")
+    ev[1].record()
+    ev[1].synchronize()
+    dice_la = strain_la.finish_la_motion(
+        ctx, os.path.join(subj, "alone"), eval_dice=True).values.mean(axis=0)
+    n = (bf.bspline_field.launches - before[0],
+         bf.bspline_field.adjoint_launches - before[1])
+    ell = pd.read_csv(os.path.join(subj, "alone_longit.csv"), index_col=0)
+    print(f"  LA strain of {os.path.basename(subj)} alone: wall "
+          f"{time.perf_counter() - t0:.4f} s, device span "
+          f"{ev[0].elapsed_time(ev[1]):.4f} ms [{card}]; {T} pairs, crop "
+          f"{(ctx['X'], ctx['Y'])} -> {bucket_hw(ctx['X'], ctx['Y'], 64)}; "
+          f"global Ell min "
+          f"{ell.loc['Global'].min():.4f} %; warp-Dice LV {dice_la[0]:.4f}; "
+          f"bspline_field launches {n[0]}, adjoint {n[1]}")
+    if min(n) <= 0:
+        raise AssertionError("the LA strain launched no B-spline kernel")
+    if bucket_hw(ctx["X"], ctx["Y"], 64) != (LA_BUCKET, LA_BUCKET):
+        raise AssertionError(f"the LA crop's bucket is not the "
+                             f"{LA_BUCKET}^2 the B-spline phase checked")
+
+    # the card's LA strain against the port's CPU path on a reduced
+    # subject: its cines cut to 6 frames
+    red = os.path.join(work, "la_reduced")
+    os.makedirs(red)
+    for name in ("la_4ch", "seg4_la_4ch"):
+        src = nifti.load(os.path.join(subj, f"{name}.nii.gz"))
+        save_nifti(nifti, os.path.join(red, f"{name}.nii.gz"),
+                   np.asarray(src.dataobj)[..., :6], src.affine)
+    for name in ("seg4_la_4ch_ED.nii.gz", "seg_sa_ED.nii.gz"):
+        shutil.copy(os.path.join(subj, name), red)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m_dir = os.path.join(red, f"motion_{dev}")
+        os.makedirs(m_dir)
+        strain_la.cine_2d_la_motion_and_strain_analysis(
+            red, m_dir, os.path.join(red, f"strain_{dev}"), cfg,
+            device=dev)
+        out[dev] = pd.read_csv(os.path.join(red, f"strain_{dev}_longit.csv"),
+                               index_col=0)
+    diff = np.abs(out["cuda"].values - out["cpu"].values)
+    seg_diff, glob_diff = np.nanmax(diff), diff[-1].max()
+    print(f"  card vs CPU LA strain on a {MAIN_SHAPE[:2] + (1, 6)} subject: "
+          f"per-segment {seg_diff:.4f} pp (bound {LA_STRAIN_SEGMENT_ATOL}), "
+          f"global {glob_diff:.4f} pp (bound {LA_STRAIN_GLOBAL_ATOL})")
+    if not (seg_diff <= LA_STRAIN_SEGMENT_ATOL
+            and glob_diff <= LA_STRAIN_GLOBAL_ATOL):
+        raise AssertionError("card and CPU LA strain disagree")
+    del launches["by_class"]
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -723,6 +1132,7 @@ def main() -> int:
     builds = build_phase(kernels)
     model = deploy.load_segmentation_model(BUNDLE, "cuda")
     head = kernel_phase(card, fh, tfcn, model, builds["fused_head"])
+    la_head_phase(card, fh, tfcn, deploy)
     spline = bspline_phase(card, tb, bf)
     work = tempfile.mkdtemp(prefix="chip_smoke_",
                             dir=os.path.join(ROOT, "build"))
@@ -731,9 +1141,13 @@ def main() -> int:
                                    engine_mod, work, model.head.n_level)
         launches.update(strain_phase(card, nifti, crop, bf, strain, register,
                                      eval_wall_thickness, work))
+        print(f"  earlier paths' launches {launches}")
+        # the kernels line counts the cohort's 1-worker run: the path a
+        # user runs by default, through every kernel
+        launches = cohort_phase(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[5/5] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[6/6] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",

@@ -8,13 +8,17 @@ machine that has no JAX (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from ukbb_cardiac_tpu_torch import resolve_device
+from ukbb_cardiac_tpu_torch.infer.deploy import load_segmentation_model
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
-                                                 SegmentationModel)
+                                                 SegmentationModel, pack_bits,
+                                                 unpack_bits)
 from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 from ukbb_cardiac_tpu_torch.models import fused_head as tfh
 from ukbb_cardiac_tpu_torch.reg import bspline as tb
@@ -22,6 +26,8 @@ from ukbb_cardiac_tpu_torch.reg import register as tr
 from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
 
 torch.set_num_threads(1)
+
+WEIGHTS = os.path.join(os.path.dirname(__file__), "fixtures", "bench_weights")
 
 # float32: the kernel and the plain version differ only in summation
 # order; bfloat16 features are read exactly by both, so the same order
@@ -203,3 +209,64 @@ def test_register_batch_on_card_matches_cpu(card):
         fields.append(tr.total_field(controls, (X, Y), cfg).cpu())
     torch.testing.assert_close(fields[1], fields[0], atol=1e-3, rtol=0)
     assert fields[0].abs().max() > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bundle, n_class", [("FCN_la_2ch.npz", 2),
+                                             ("FCN_la_4ch.npz", 3),
+                                             ("FCN_la_4ch_seg4.npz", 6)])
+def test_fused_head_with_trained_la_bundles(card, bundle, n_class):
+    """The LA deploys' heads (2, 3 and 6 classes, padded to the kernel's
+    8) at the LA cine's 192 x 208, trained weights."""
+    model = load_segmentation_model(os.path.join(WEIGHTS, bundle), card)
+    assert model.head.n_class == n_class
+    yy, xx = np.meshgrid(np.arange(208), np.arange(192))
+    rng = np.random.RandomState(n_class)
+    x = np.stack([((xx - 96 - 9 * k) ** 2 + (yy - 104) ** 2 < 900) * 0.8
+                  + 0.05 * rng.randn(192, 208) for k in range(3)])
+    x = torch.from_numpy(x[..., None].astype(np.float32)).to(card)
+    with torch.inference_mode():
+        feats = model.net.encode(tfcn.nchw(x, torch.float32))
+        before = tfh.fused_head.launches_by_class.get(n_class, 0)
+        got = tfh.fused_head(feats, model.head)
+        torch.cuda.synchronize()
+        ref = tfh.fused_head_plain(feats, model.head)
+    assert tfh.fused_head.launches_by_class[n_class] == (
+        before + model.head.n_level)
+    assert got.shape == (3, n_class, 192, 208)
+    torch.testing.assert_close(got, ref, atol=ATOL[torch.float32], rtol=0)
+
+
+@pytest.mark.cuda
+def test_four_bit_pack_of_six_classes_on_card(card):
+    labels = np.random.RandomState(6).randint(0, 6, 192 * 208 * 50 + 1)
+    flat = torch.from_numpy(labels.astype(np.uint8))
+    packed = pack_bits(flat.to(card), 4).cpu()
+    assert torch.equal(packed, pack_bits(flat, 4))
+    np.testing.assert_array_equal(
+        unpack_bits(packed.numpy(), 4, labels.size), labels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,spacing,lattice", [
+    # the LA strain's pyramid on a crop bucketed to 128 x 128, B = 50
+    ((32, 32), 10, None), ((64, 64), 10, None), ((128, 128), 10, None),
+    ((128, 128), 40, (7, 7)), ((128, 128), 20, (10, 10)),
+    ((192, 128), 10, None),            # a crop bucketed to 192 x 128
+])
+def test_bspline_kernels_at_the_la_shapes(card, shape, spacing, lattice):
+    Cx, Cy = lattice or tb.lattice_shape(shape, spacing)
+    rng = np.random.RandomState(8)
+    c = torch.from_numpy(rng.randn(50, Cx, Cy, 2).astype(np.float32)).to(
+        card).requires_grad_(True)
+    G = torch.from_numpy(rng.randn(50, *shape, 2).astype(np.float32)).to(card)
+    out = bspline_field(c, shape, spacing)
+    (out * G).sum().backward()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        torch.testing.assert_close(
+            out, tb.bspline_dense_field_plain(c, shape, spacing),
+            atol=FIELD_ATOL, rtol=0)
+        torch.testing.assert_close(
+            c.grad, tb.bspline_adjoint_plain(G, (Cx, Cy), spacing),
+            atol=ADJOINT_ATOL, rtol=0)

@@ -54,6 +54,15 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.phenotype.wall_thickness",
     "ukbb_cardiac_tpu_torch.cli.eval_strain_sax",
     "ukbb_cardiac_tpu_torch.cli.eval_wall_thickness",
+    # the cohort slice's
+    "ukbb_cardiac_tpu_torch.parallel",
+    "ukbb_cardiac_tpu_torch.parallel.fleet",
+    "ukbb_cardiac_tpu_torch.parallel.cohort",
+    "ukbb_cardiac_tpu_torch.phenotype.atrium",
+    "ukbb_cardiac_tpu_torch.phenotype.strain_la",
+    "ukbb_cardiac_tpu_torch.cli.run_cohort",
+    "ukbb_cardiac_tpu_torch.cli.eval_atrial_volume",
+    "ukbb_cardiac_tpu_torch.cli.eval_strain_lax",
 }
 
 

@@ -1,0 +1,122 @@
+"""Whole-cohort end-to-end processing with cross-stage overlap, on the card.
+
+Counterpart of ``ukbb_cardiac_tpu/cli/run_cohort.py``: one command runs
+
+    segmentation → ventricular volumes → wall thickness → strain
+
+per subject over a worker pool, and with any of ``--model_path_la_2ch /
+--model_path_la_4ch / --model_path_seg4`` the long-axis chain after it
+(LA deploys → atrial volumes → LA strain).  Outputs per subject match the
+individual CLIs file for file; aggregate CSVs go to ``--output_dir`` in
+the same schemas, and the summary line, manifest and exit code are the
+JAX CLI's.
+
+The JAX CLI's flags plus ``--device`` (default ``cuda``; without a card it
+raises unless ``--device cpu`` is given).  Not ported, and raising when
+asked for: the aortic stage (``--model_path_ao``, ``--pressure_csv``;
+ROADMAP A10) and ``--mesh_devices`` above 1 (multi-GPU, A14).
+
+Usage:
+  python -m ukbb_cardiac_tpu_torch.cli.run_cohort --data_dir <dir> \
+      --model_path <FCN_sa.npz> --output_dir <csv dir>
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--data_dir", metavar="dir_name", required=True)
+    parser.add_argument("--model_path", metavar="path", required=True,
+                        help="FCN model bundle (.npz)")
+    parser.add_argument("--output_dir", metavar="dir_name", required=True,
+                        help="Aggregate CSV directory")
+    parser.add_argument("--workers", type=int, default=1,
+                        help="Subjects in flight (threads). 1 by default: "
+                             "on one H100 three workers ran slower than one "
+                             "(PERF.md section 5).")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bf16 activations for segmentation")
+    parser.add_argument("--eval_dice", action="store_true")
+    parser.add_argument("--force", action="store_true",
+                        help="Re-segment even when seg_sa.nii.gz exists")
+    parser.add_argument("--manifest", metavar="json_name", default="",
+                        help="Write the fleet manifest (per-subject "
+                             "status/seconds) to this JSON file")
+    parser.add_argument("--mesh_devices", type=int, default=0,
+                        help="Accepted for the JAX CLI's sake: values above "
+                             "1 (multi-GPU) are not ported and raise.")
+    parser.add_argument("--model_path_la_2ch", metavar="path", default="")
+    parser.add_argument("--model_path_la_4ch", metavar="path", default="")
+    parser.add_argument("--model_path_seg4", metavar="path", default="")
+    parser.add_argument("--model_path_ao", metavar="path", default="",
+                        help="Not ported (the aortic stage): raises.")
+    parser.add_argument("--pressure_csv", metavar="csv_name", default="",
+                        help="Not ported (the aortic stage): raises.")
+    parser.add_argument("--start_idx", type=int, default=0,
+                        help="First subject index (sorted order) — the "
+                             "reference eval scripts' manual sharding "
+                             "flags (eval_strain_sax.py:26-34)")
+    parser.add_argument("--end_idx", type=int, default=-1,
+                        help="One past the last subject index (-1 = all)")
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda' (default) or 'cpu'.")
+    args = parser.parse_args(argv)
+
+    if args.model_path_ao or args.pressure_csv:
+        raise NotImplementedError("the aortic stage (--model_path_ao, "
+                                  "--pressure_csv; ROADMAP A10) is not "
+                                  "ported")
+    if args.mesh_devices > 1:
+        raise NotImplementedError("--mesh_devices > 1 (multi-GPU) is not "
+                                  "ported")
+
+    from ukbb_cardiac_tpu_torch import resolve_device
+    from ukbb_cardiac_tpu_torch.infer.deploy import load_segmentation_model
+    from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
+    from ukbb_cardiac_tpu_torch.parallel.cohort import (run_cohort_full,
+                                                        run_cohort_sa)
+
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else None
+
+    def slice_engine(path):
+        return InferenceEngine(load_segmentation_model(path, device, dtype))
+
+    engine = slice_engine(args.model_path)
+    common = dict(workers=args.workers, eval_dice=args.eval_dice,
+                  output_dir=args.output_dir,
+                  skip_existing_seg=not args.force,
+                  start_idx=args.start_idx, end_idx=args.end_idx,
+                  device=device)
+    if any((args.model_path_la_2ch, args.model_path_la_4ch,
+            args.model_path_seg4)):
+        engines = {"sa": engine}
+        for key, path in (("la_2ch", args.model_path_la_2ch),
+                          ("la_4ch", args.model_path_la_4ch),
+                          ("seg4", args.model_path_seg4)):
+            if path:
+                engines[key] = slice_engine(path)
+        result = run_cohort_full(args.data_dir, engines, **common)
+    else:
+        result = run_cohort_sa(args.data_dir, engine, **common)
+    n_ok = len(result.fleet.succeeded)
+    print(f"cohort: {n_ok} succeeded, {len(result.fleet.failed)} failed, "
+          f"{len(result.fleet.skipped)} skipped in "
+          f"{result.wall_seconds:.1f}s "
+          f"({result.subjects_per_s:.3f} subjects/s)")
+    if args.manifest:
+        with open(args.manifest, "w") as f:
+            json.dump({**result.fleet.to_manifest(),
+                       "wall_seconds": result.wall_seconds,
+                       "stage_seconds": result.stage_seconds}, f, indent=2)
+    return 0 if not result.fleet.failed else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

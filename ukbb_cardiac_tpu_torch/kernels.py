@@ -6,16 +6,24 @@ the root of the checkout (listed in ``.gitignore``), at first use, and
 bound with ``ctypes``.  The library's file name carries a hash of the
 source and flags, so an edited source is rebuilt and never mixed up with
 an old build.  Nothing here runs at import time.
+
+The cohort driver reaches first use from several threads at once: a lock
+per kernel makes one of them build while the others wait, every compile
+writes a temporary file of its own, and :func:`count_launches` updates
+the wrappers' launch counters under a lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import itertools
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -55,6 +63,23 @@ class Build:
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one re-entrant lock per kernel name (load holds it while it builds)
+_BUILD_LOCKS = {name: threading.RLock() for name in SIGNATURES}
+_TMP_SERIAL = itertools.count()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launches(fn, n: int, attr: str = "launches",
+                   n_class: int | None = None) -> None:
+    """Add ``n`` to the wrapper ``fn``'s counter ``attr`` (and, with
+    ``n_class``, to ``fn.launches_by_class[n_class]``) under a lock:
+    ``+=`` on an attribute is a read-modify-write that loses counts when
+    worker threads launch together."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
+        if n_class is not None:
+            fn.launches_by_class[n_class] = (
+                fn.launches_by_class.get(n_class, 0) + n)
 
 
 def _nvcc() -> str:
@@ -82,46 +107,58 @@ def _finish(started):
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Build]:
     """Compile every named kernel that has no current build, one ``nvcc``
     per source, all started together.  Raises with the compiler's output
-    if one fails."""
+    if one fails.  Holds each named kernel's lock (in a fixed order), so
+    a concurrent caller waits for this build and then reuses it."""
+    names = sorted(set(names))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started, done = {}, {}
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            done[name] = Build(name, out, 0.0, [])
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, out, tmp, time.perf_counter())
-    # wait on every compiler at once, so each build's time is its own
-    with ThreadPoolExecutor(max(len(started), 1)) as pool:
-        logs = dict(zip(started, pool.map(_finish, started.values())))
-    for name, (proc, out, tmp, t0) in started.items():
-        log, seconds = logs[name]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        lines = [ln.strip() for ln in log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry", ln)]
-        done[name] = Build(name, out, seconds, lines)
+    with contextlib.ExitStack() as held:
+        for name in names:
+            held.enter_context(_BUILD_LOCKS[name])
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                done[name] = Build(name, out, 0.0, [])
+                continue
+            # unique per call: threads share a pid
+            tmp = out.with_name(f"{out.name}.{os.getpid()}."
+                                f"{next(_TMP_SERIAL)}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, out, tmp, time.perf_counter())
+        # wait on every compiler at once, so each build's time is its own
+        with ThreadPoolExecutor(max(len(started), 1)) as pool:
+            logs = dict(zip(started, pool.map(_finish, started.values())))
+        for name, (proc, out, tmp, t0) in started.items():
+            log, seconds = logs[name]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+            lines = [ln.strip() for ln in log.splitlines()
+                     if re.search(r"registers|spill|Compiling entry", ln)]
+            done[name] = Build(name, out, seconds, lines)
     return done
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built if needed, with its C
     signatures declared."""
-    if name not in _LIBS:
-        path = build([name])[name].path
-        lib = ctypes.CDLL(str(path))
-        for sym, restype, argtypes in SIGNATURES[name]:
-            fn = getattr(lib, sym)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _LIBS[name] = lib
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCKS[name]:
+        if name not in _LIBS:
+            path = build([name])[name].path
+            lib = ctypes.CDLL(str(path))
+            for sym, restype, argtypes in SIGNATURES[name]:
+                fn = getattr(lib, sym)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:

@@ -276,7 +276,8 @@ def fused_head(feats: Sequence[torch.Tensor], w: HeadWeights) -> torch.Tensor:
     """Fused head: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors.  ``fused_head.launches`` counts kernel launches: a call
     launches one ``coarse_kernel`` per coarse level and one
-    ``head_kernel``, ``n_level`` in all."""
+    ``head_kernel``, ``n_level`` in all; ``fused_head.launches_by_class``
+    splits the same count by the head's number of classes."""
     _check(feats, w)
     dev = feats[0].device
     if dev.type == "cpu":
@@ -307,11 +308,12 @@ def fused_head(feats: Sequence[torch.Tensor], w: HeadWeights) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"fused_head kernel failed: CUDA error {rc} "
                            f"({kernels.error_string(lib, rc)})")
-    fused_head.launches += w.n_level
+    kernels.count_launches(fused_head, w.n_level, n_class=w.n_class)
     return out
 
 
 fused_head.launches = 0
+fused_head.launches_by_class = {}
 
 
 def apply_fcn_fused(net: FCN, image: torch.Tensor, head: HeadWeights = None,

@@ -1,13 +1,12 @@
-"""Quality-control gate — the reference's SA runtime validator
-(``cardiac_utils.py:77-136``).
+"""Quality-control gates — the reference's runtime validators
+(``cardiac_utils.py:77-169,1616-1652``).
 
-It acts as a per-subject gate that *skips* bad data rather than fails,
-matching the reference's defensive pipeline style, and accepts either a
-filename or an in-memory array.
+They act as per-subject gates that *skip* bad data rather than fail,
+matching the reference's defensive pipeline style; the SA and LA gates
+accept either a filename or an in-memory array.
 
-The port's copy of ``sa_pass_quality_control`` from
-``ukbb_cardiac_tpu/phenotype/qc.py``; the LA, atrium and aorta gates
-come with the slices that port their callers.
+The port's copy of ``ukbb_cardiac_tpu/phenotype/qc.py`` without the
+aorta gate, which comes with the aortic slice.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ukbb_cardiac_tpu_torch.io import nifti
-from ukbb_cardiac_tpu_torch.ops.cc import get_largest_cc
+from ukbb_cardiac_tpu_torch.ops.cc import count_significant_cc, get_largest_cc
 from ukbb_cardiac_tpu_torch.phenotype.contours import lv_slice_masks
 
 
@@ -66,3 +65,53 @@ def sa_pass_quality_control(seg_sa) -> bool:
         return False
     return True
 
+
+def la_pass_quality_control(seg_la) -> bool:
+    """LA seg4 QC (``cardiac_utils.py:139-169``): all 5 classes ≥10 px on
+    slice 0; endo/myo/epi extractable after CC cleanup."""
+    seg, name = _load_seg(seg_la)
+    if seg.ndim == 4:
+        seg = seg[:, :, :, 0]
+    seg_z = seg[:, :, 0]
+    label = {"LV": 1, "Myo": 2, "RV": 3, "LA": 4, "RA": 5}
+
+    for l_name, l in label.items():
+        if np.sum(seg_z == l) < 10:
+            print(f"{name}: The segmentation for class {l_name} is smaller "
+                  f"than 10 pixels. It does not pass the quality control.")
+            return False
+
+    endo, myo, epi = lv_slice_masks(seg_z, label["LV"], label["Myo"])
+    if np.sum(endo) < 10 or np.sum(myo) < 10 or np.sum(epi) < 10:
+        print(f"{name}: Can not find LV endo, myo or epi to extract the "
+              f"long-axis myocardial contour.")
+        return False
+    return True
+
+
+def atrium_pass_quality_control(label, label_dict) -> bool:
+    """Atrium QC (``cardiac_utils.py:1616-1652``): per chamber —
+    (1) nonzero area at every frame; (2) at most one connected component
+    larger than 10 px (8-connectivity); (3) no frame-to-frame area ratio
+    ≥2 or ≤0.5 (circular, t vs t-1 including t=0 vs last)."""
+    label = np.asanyarray(label)
+    T = label.shape[3]
+    for l_name, l in label_dict.items():
+        for t in range(T):
+            if np.sum(label[:, :, :, t] == l) == 0:
+                print(f"The area of {l_name} is 0 at time frame {t}.")
+                return False
+
+        for t in range(T):
+            if count_significant_cc(label[:, :, :, t] == l, 10, 2) >= 2:
+                print(f"The segmentation has at least two connected "
+                      f"components with more than 10 pixels at time frame {t}.")
+                return False
+
+        A = np.sum(label == l, axis=(0, 1, 2))
+        for t in range(T):
+            ratio = A[t] / float(A[t - 1])
+            if ratio >= 2 or ratio <= 0.5:
+                print(f"There is abrupt change of area at time frame {t}.")
+                return False
+    return True

@@ -42,11 +42,14 @@ from ukbb_cardiac_tpu_torch.reg.register import (RegConfig, compose_chain,
 
 
 def evaluate_strain_by_length(contour_name_stem: str, T: int, dt: float,
-                              output_name_stem: str, polys=None) -> None:
+                              output_name_stem: str, polys=None,
+                              write_vtk: bool = True) -> None:
     """Lagrangian strain per line cell vs ED; per-AHA-segment tables
     (``cardiac_utils.py:755-837``).  Reads ``<stem><fr:02d>.vtk`` (or the
     same polydata passed in memory via ``polys``), writes the Strain cell
-    array back and ``<out>_radial.csv`` / ``<out>_circum.csv``."""
+    array back and ``<out>_radial.csv`` / ``<out>_circum.csv``.
+    ``write_vtk=False`` skips rewriting the Strain-annotated frame files
+    (the cohort driver deletes the motion directory right after)."""
     poly_ED = (polys[0] if polys is not None
                else load_polydata(f"{contour_name_stem}{0:02d}.vtk"))
     pts = poly_ED.points
@@ -64,7 +67,8 @@ def evaluate_strain_by_length(contour_name_stem: str, T: int, dt: float,
         d = np.linalg.norm(p[lines_arr[:, 0]] - p[lines_arr[:, 1]], axis=1)
         strain = (d - length_ED) / length_ED * 100
         poly.cell_scalars["Strain"] = strain
-        save_polydata(poly, filename)
+        if write_vtk:
+            save_polydata(poly, filename)
 
         for i in range(16):
             table_strain["radial"][i, fr] = np.mean(
@@ -214,6 +218,14 @@ def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
         return combine_fields(fields, Z, T)
 
 
+def track_slice_fields(frames: np.ndarray, cfg: RegConfig,
+                       device=None) -> torch.Tensor:
+    """Single-slice wrapper around :func:`track_multi_slice_fields`:
+    frames (T, X, Y) → (1, T, X, Y, 2) on the device (the slice axis kept,
+    as :func:`sample_points` and :func:`warp_dice` take it)."""
+    return track_multi_slice_fields(frames[None], cfg, device=device)
+
+
 def start_sa_motion_dispatch(data_dir: str, output_dir: str,
                              cfg: RegConfig = RegConfig(),
                              eval_dice: bool = False, device=None):
@@ -310,12 +322,14 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
             "eval_dice": eval_dice}
 
 
-def finish_sa_motion(ctx: dict, output_name_stem: str
-                     ) -> Optional[pd.DataFrame]:
+def finish_sa_motion(ctx: dict, output_name_stem: str,
+                     write_artifacts: bool = True) -> Optional[pd.DataFrame]:
     """Stage 2 of the SA strain driver: fetch the contour-point
     displacements (and the warp-Dice rows), build and write the per-frame
     contour polydata and write the strain tables
-    (``cardiac_utils.py:938-987``)."""
+    (``cardiac_utils.py:938-987``).  ``write_artifacts=False`` skips the
+    per-frame contour VTKs (the cohort driver deletes the motion
+    directory right after reading the CSVs)."""
     output_dir = ctx["output_dir"]
     selected = ctx["selected"]
     T, dt = ctx["T"], ctx["dt"]
@@ -342,22 +356,25 @@ def finish_sa_motion(ctx: dict, output_name_stem: str
                                point_scalars=dict(poly_ED.point_scalars),
                                point_vectors=dict(poly_ED.point_vectors),
                                cell_scalars=dict(poly_ED.cell_scalars))
-            save_polydata(
-                poly_fr,
-                os.path.join(output_dir,
-                             f"myo_contour_z{z:02d}_fr{fr:02d}.vtk"))
+            if write_artifacts:
+                save_polydata(
+                    poly_fr,
+                    os.path.join(output_dir,
+                                 f"myo_contour_z{z:02d}_fr{fr:02d}.vtk"))
             polys_by_frame[fr].append(poly_fr)
 
     # merge slices per frame (vtkAppendPolyData twin, :969-984)
     merged = []
     for fr in range(T):
         m = append_polydata(polys_by_frame[fr])
-        save_polydata(m, os.path.join(output_dir,
-                                      f"myo_contour_fr{fr:02d}.vtk"))
+        if write_artifacts:
+            save_polydata(m, os.path.join(output_dir,
+                                          f"myo_contour_fr{fr:02d}.vtk"))
         merged.append(m)
 
     evaluate_strain_by_length(os.path.join(output_dir, "myo_contour_fr"),
-                              T, dt, output_name_stem, polys=merged)
+                              T, dt, output_name_stem, polys=merged,
+                              write_vtk=write_artifacts)
     if eval_dice and dice_rows:
         df = pd.DataFrame(dice_rows)
         df.to_csv(os.path.join(output_dir, "dice_cine_warp_ffd.csv"),

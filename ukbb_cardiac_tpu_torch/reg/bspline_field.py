@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from ukbb_cardiac_tpu_torch import kernels
 from ukbb_cardiac_tpu_torch.reg.bspline import (bspline_adjoint_plain,
                                                 bspline_dense_field_plain,
                                                 residue_weights)
@@ -95,8 +96,6 @@ def adjoint_plan(lattice: Tuple[int, int], image_shape: Tuple[int, int],
 def _launch(symbol: str, src: torch.Tensor, out: torch.Tensor,
             lattice: Tuple[int, int], image_shape: Tuple[int, int],
             spacing: int, *plan: int) -> None:
-    from ukbb_cardiac_tpu_torch import kernels
-
     lib = kernels.load("bspline_field")
     B = src.shape[0]
     (Cx, Cy), (X, Y) = lattice, image_shape
@@ -127,7 +126,7 @@ class _BSplineField(torch.autograd.Function):
         if control.shape[0]:
             _launch("ukbb_bspline_field", control, out, ctx.meta[0], (X, Y),
                     spacing)
-            bspline_field.launches += 1
+            kernels.count_launches(bspline_field, 1)
         return out
 
     @staticmethod
@@ -151,7 +150,7 @@ def bspline_field_adjoint(grad: torch.Tensor, lattice: Tuple[int, int],
     if B:
         _launch("ukbb_bspline_field_adjoint", grad, out, lattice, (X, Y),
                 spacing, *adjoint_plan(tuple(lattice), (X, Y), spacing))
-        bspline_field.adjoint_launches += 1
+        kernels.count_launches(bspline_field, 1, "adjoint_launches")
     return out
 
 

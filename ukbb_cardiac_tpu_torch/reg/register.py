@@ -345,6 +345,10 @@ def make_register_batch(image_shape: Tuple[int, int],
             x = gaussian_blur(x, sig)
         return x[:, ::f, ::f] if f > 1 else x
 
+    # the optimiser records autograd whatever mode the caller entered:
+    # inference mode (the deploy engine's) would make every tensor made
+    # here an inference tensor, which autograd refuses
+    @torch.inference_mode(False)
     def register(targets, sources):
         targets = torch.as_tensor(targets, device=dev)
         sources = torch.as_tensor(sources, device=dev)
