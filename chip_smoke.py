@@ -36,26 +36,32 @@
    with the port's CPU path on a reduced subject (6 frames);
 5. drives the cohort CLI (``cli.run_cohort``) in full mode — the SA
    chain, then the la_2ch / la_4ch / seg4 deploys with the trained LA
-   bundles (2, 3 and 6 classes), atrial volumes and LA strain — on 3
-   full-size subjects (SA (192, 208, 10, 50), LA (192, 208, 1, 50)
-   int16), with 1 worker (the default), then with 3 on the shared default
-   stream and on a stream per worker (shared, own, own, shared); prints
-   for each run the cohort wall, subjects/s, median stage seconds and
-   launches per subject, head launches by number of classes; checks
-   every subject, the aggregate tables, LA Dice against the truth, LA
-   labels and the atrial row of the port's CPU deploy against the card's,
-   and the card's LA strain against the CPU's on a reduced subject;
-   prints one subject's LA strain alone (launches, device span) and each
-   LA cine's device span;
-6. prints the card's name and power limit, one JSON line of kernel
+   bundles (2, 3 and 6 classes), atrial volumes, LA strain, and the
+   aortic stage (the trained ``UNet-LSTM_ao`` bundle, ``--pressure_csv``)
+   — on 3 full-size subjects (SA (192, 208, 10, 50), LA (192, 208, 1, 50),
+   aortic (240, 196, 1, 100) int16), with 1 worker (the default), then
+   with 3 on the shared default stream and on a stream per worker
+   (shared, own, own, shared); prints for each run the cohort wall,
+   subjects/s, median stage seconds and launches per subject, head
+   launches by number of classes; checks every subject, the aggregate
+   tables, LA Dice against the truth, LA labels and the atrial row of the
+   port's CPU deploy against the card's, and the card's LA strain against
+   the CPU's on a reduced subject; prints one subject's LA strain alone
+   (launches, device span) and each LA cine's device span;
+6. the aortic stage: Dice of the cohort's aortic segs against the
+   phantom truth, the device span per aortic cine, the U-Net's and the
+   ConvLSTM's device spans (CUDA events), the ConvLSTM's device
+   operations and busy share under torch.profiler, and the card's labels
+   and area row against the port's CPU path on a cine cut to 10 frames;
+7. prints the card's name and power limit, one JSON line of kernel
    figures (launches from the 1-worker cohort run), and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card (``torch.cuda.is_available()`` false) it exits 1 at once.  The
 weights are the repo's trained ``tests/fixtures/bench_weights/FCN_*.npz``
-bundles (full widths, 5 levels); the phantoms and the kernels' test
-inputs come from fixed seeds.
+and ``UNet-LSTM_ao.npz`` bundles (full widths, 5 levels); the phantoms and
+the kernels' test inputs come from fixed seeds.
 """
 
 from __future__ import annotations
@@ -114,15 +120,24 @@ AFFINE_LA = np.array([[-1.8, 0, 0, 80.0], [0, 0, 10.0, 0.0],
                       [0, -1.8, 0, 90.0], [0, 0, 0, 1.0]])
 LA_STRAIN_SEGMENT_ATOL, LA_STRAIN_GLOBAL_ATOL = 1.5, 0.3
 ATRIAL_RTOL = 1e-6                   # the CPU tests' bound on atrial rows
+# the aortic stage: the trained UNet-LSTM on the JAX package's bench cine
+# (bench.py: ao_phantom(240, 196, 100, r_aa=18, r_da=12)), the aortic
+# affine of tests/test_cohort.py, the CPU tests' bound on area rows
+AO_BUNDLE = os.path.join(WEIGHTS, "UNet-LSTM_ao.npz")
+AO_SHAPE = (240, 196, 1, 100)
+AFFINE_AO = np.diag([-1.8, -1.8, 10.0, 1.0])
+AREA_RTOL = 1e-6
+PULSE_PRESSURE = "Central pulse pressure during PWA"
 COHORT_STAGES = ("segment", "volumes", "wall_thickness", "strain",
-                 "segment_la", "atrial_volumes", "strain_la")
+                 "segment_la", "atrial_volumes", "strain_la", "aortic")
 # aggregate CSVs of a full-mode cohort: (rows, columns) per table
 COHORT_TABLES = {"table_ventricular_volume.csv": 12,
                  "table_wall_thickness.csv": 17,
                  "table_wall_thickness_max.csv": 17,
                  "table_strain_sax.csv": 34,
                  "table_atrial_volume.csv": 8,
-                 "table_strain_lax.csv": 7}
+                 "table_strain_lax.csv": 7,
+                 "table_aortic_area.csv": 6}
 
 
 def card_line() -> str:
@@ -308,6 +323,30 @@ def seg4_la_phantom(X, Y, T, zoom, amp=0.3, noise=0.05, rng=None):
     return np.round(image).astype(np.int16), seg
 
 
+def ao_phantom(X, Y, T, r_aa, r_da, pulse_amp=0.15, noise=0.05, rng=None):
+    """Aortic cine, one slice (tests/phantom.py::ao_phantom): pulsating
+    ascending (label 1) and descending (label 2) aortic disks.  Returns
+    (image int16, seg int16) of shape (X, Y, 1, T)."""
+    rng = rng or np.random.RandomState(3)
+    image = np.zeros((X, Y, 1, T), np.float32)
+    seg = np.zeros((X, Y, 1, T), np.int16)
+    pulse = 1.0 + pulse_amp * np.sin(2 * np.pi * np.arange(T) / T)
+    peak = 1.0 + pulse_amp
+    off_aa = max(14, int(math.ceil(r_aa * peak)) + 2)
+    off_da = max(16, int(math.ceil(r_da * peak)) + 2)
+    for t in range(T):
+        aa = _disk(X, Y, X // 2 - off_aa, Y // 2, r_aa * pulse[t])
+        da = _disk(X, Y, X // 2 + off_da, Y // 2, r_da * pulse[t])
+        seg[:, :, 0, t][aa] = 1
+        seg[:, :, 0, t][da & ~aa] = 2
+        img = np.zeros((X, Y), np.float32)
+        img[aa] = 900.0
+        img[da] = 850.0
+        img += rng.randn(X, Y).astype(np.float32) * noise * 1000.0
+        image[:, :, 0, t] = np.clip(img, 0, 1000)
+    return np.round(image).astype(np.int16), seg
+
+
 def save_nifti(nifti, path, data, affine, dt=0.04):
     hdr = nifti.Nifti1Header()
     hdr.dim[0] = data.ndim
@@ -322,8 +361,10 @@ def write_cohort(data_dir, nifti, T):
     """Complete subjects for the cohort (the construction of the JAX
     package's bench cohort): an SA cine (192, 208, 10, T) with r_lv 30,
     wall 10; one 4-chamber cine (zoom 2) that la_4ch and seg4 both read; a
-    2-chamber cine (r_la 20); int16, world-consistent SA and LA affines.
-    Returns {subject: {"la_2ch", "la_4ch", "seg4": truth labels}}."""
+    2-chamber cine (r_la 20); an aortic cine AO_SHAPE (r_aa 18, r_da 12);
+    int16, world-consistent SA and LA affines; and the pressure CSV (two
+    header rows, Vicorder fields 12678-2.0/2.1).  Returns
+    {subject: {"la_2ch", "la_4ch", "seg4", "ao": truth labels}}."""
     X, Y, Z = MAIN_SHAPE[:3]
     truth = {}
     for i in range(N_SUBJECTS):
@@ -337,9 +378,18 @@ def write_cohort(data_dir, nifti, T):
         save_nifti(nifti, os.path.join(d, "sa.nii.gz"), sa, AFFINE_SA)
         save_nifti(nifti, os.path.join(d, "la_4ch.nii.gz"), la4, AFFINE_LA)
         save_nifti(nifti, os.path.join(d, "la_2ch.nii.gz"), la2, AFFINE_LA)
+        ao, seg_ao = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0,
+                                r_da=12.0, rng=rng)
+        save_nifti(nifti, os.path.join(d, "ao.nii.gz"), ao, AFFINE_AO)
         seg_la4 = np.zeros_like(seg4)
         seg_la4[seg4 == 4], seg_la4[seg4 == 5] = 1, 2
-        truth[subject] = {"la_2ch": seg2, "la_4ch": seg_la4, "seg4": seg4}
+        truth[subject] = {"la_2ch": seg2, "la_4ch": seg_la4, "seg4": seg4,
+                          "ao": seg_ao}
+    with open(os.path.join(os.path.dirname(data_dir), "bp.csv"), "w") as f:
+        f.write(f"eid,{PULSE_PRESSURE},{PULSE_PRESSURE}\n"
+                ",12678-2.0,12678-2.1\n")
+        for i, subject in enumerate(sorted(truth)):
+            f.write(f"{subject},{40 + 2 * i},{42 + 2 * i}\n")
     return truth
 
 
@@ -351,7 +401,7 @@ def dice(a, b, label):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/6] build", flush=True)
+    print("[1/7] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -438,7 +488,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/6] fused head vs its plain version at the main path's shapes",
+    print("[2/7] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -482,7 +532,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/6] fused head with the LA bundles vs its plain version at "
+    print(f"[2/7] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -541,7 +591,7 @@ def bspline_phase(card, tb, bf):
     the strain path; times at the finest level go into the kernels line."""
     import torch.nn.functional as F
 
-    print("[2/6] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/7] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
     rng = np.random.RandomState(11)
     result = {}
@@ -617,7 +667,7 @@ def bspline_phase(card, tb, bf):
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/6] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/7] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -705,7 +755,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/6] main path: wall thickness + SA strain "
+    print(f"[4/7] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -912,15 +962,18 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/6] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4) "
-          f"on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
-          f"{MAIN_SHAPE[:2] + (1, T)} int16, workers 1 and 3", flush=True)
+    print(f"[5/7] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+          f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
+          f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
+          f"and 3", flush=True)
     data_dir = os.path.join(work, "cohort")
     truth = write_cohort(data_dir, nifti, T)
     args = ["--data_dir", data_dir, "--model_path", BUNDLE,
             "--model_path_la_2ch", os.path.join(WEIGHTS, LA_BUNDLES["la_2ch"]),
             "--model_path_la_4ch", os.path.join(WEIGHTS, LA_BUNDLES["la_4ch"]),
             "--model_path_seg4", os.path.join(WEIGHTS, LA_BUNDLES["seg4"]),
+            "--model_path_ao", AO_BUNDLE,
+            "--pressure_csv", os.path.join(work, "bp.csv"),
             "--device", "cuda", "--force"]
     runs = [(1, "default stream"), (3, "default stream"),
             (3, "stream per worker"), (3, "stream per worker"),
@@ -991,7 +1044,8 @@ def cohort_phase(card, work):
               "seg4": "seg4_la_4ch"}
     for subject, tr in truth.items():
         d = []
-        for key, seg_true in tr.items():
+        for key in prefix:
+            seg_true = tr[key]
             seg = np.asarray(nifti.load(os.path.join(
                 data_dir, subject, f"{prefix[key]}.nii.gz")).dataobj)
             d += [dice(seg, seg_true, k)
@@ -1102,7 +1156,157 @@ def cohort_phase(card, work):
             and glob_diff <= LA_STRAIN_GLOBAL_ATOL):
         raise AssertionError("card and CPU LA strain disagree")
     del launches["by_class"]
-    return launches
+    return launches, truth
+
+
+def conv_flops(module, run) -> float:
+    """FLOPs of the convolutions (with BN) inside ``module`` during
+    ``run()``: 2 per product, a transposed conv counted by its input
+    pixels (the products that are not with stuffed zeros)."""
+    from ukbb_cardiac_tpu_torch.models.layers import ConvBN
+
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        cout, cin = mod.weight.shape[:2]
+        src = inp[0] if mod.transpose else out
+        pixels = src.numel() / src.shape[1]
+        total[0] += 2.0 * pixels * cin * cout * mod.weight[0, 0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, ConvBN)]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def aortic_phase(card, work, truth):
+    """The cohort's aortic stage seen closer: Dice of its segs, the device
+    span of one aortic cine through the deploy, the U-Net / ConvLSTM split
+    (CUDA events), the ConvLSTM under torch.profiler, and the card's
+    labels and area row against the port's CPU path on a 10-frame cut."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import (AO_SIZE,
+                                                        load_aortic_engine)
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.ops.crop import pad_to_size
+    from ukbb_cardiac_tpu_torch.ops.intensity import normalise_intensity_torch
+    from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
+                                                        aortic_row)
+
+    print(f"[6/7] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+          flush=True)
+    data_dir = os.path.join(work, "cohort")
+    for subject, tr in truth.items():
+        seg = np.asarray(nifti.load(os.path.join(
+            data_dir, subject, "seg_ao.nii.gz")).dataobj)
+        d = [dice(seg, tr["ao"], k) for k in (1, 2)]
+        print(f"  subject {subject}: Dice AAo {d[0]:.4f}, DAo {d[1]:.4f}")
+        if seg.shape != AO_SHAPE or min(d) < 0.9:
+            raise AssertionError(f"subject {subject}: aortic seg "
+                                 f"{seg.shape}, Dice {d}")
+    with open(os.path.join(work, "cohort_0.json")) as f:
+        stages = json.load(f)["stage_seconds"]
+    print("  aortic stage s per subject, 1-worker cohort run: "
+          + ", ".join(f"{k} {v['aortic']:.4f}" for k, v in
+                      sorted(stages.items())) + f" [{card}]")
+
+    engine = load_aortic_engine(AO_BUNDLE, "cuda")
+    subj = os.path.join(data_dir, sorted(truth)[0])
+    cine = np.asarray(nifti.load(os.path.join(subj, "ao.nii.gz")).dataobj)
+    for i in range(3):
+        t0 = time.perf_counter()
+        pending = engine.segment_cine_dispatch(cine)
+        t1 = time.perf_counter()
+        pending.result()
+        print(f"  deploy of one aortic cine, call {i + 1}: dispatch "
+              f"{t1 - t0:.4f} s, to labels {time.perf_counter() - t0:.4f} s; "
+              f"device span {pending.device_ms:.4f} ms [{card}]")
+
+    # the same pipeline by part, CUDA events between the parts
+    net = engine.net
+    X, Y, Z, T = cine.shape
+    x_pre, x_post, y_pre, y_post = pad_to_size(X, Y, AO_SIZE)
+    with torch.inference_mode():
+        for i in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            raw = torch.from_numpy(np.ascontiguousarray(cine.T)).cuda()
+            seq = F.pad(normalise_intensity_torch(raw).permute(1, 0, 3, 2),
+                        (y_pre, y_post, x_pre, x_post))
+            ev[1].record()
+            _, feats = net.unet(seq.reshape(Z * T, 1, AO_SIZE, AO_SIZE))
+            ev[2].record()
+            t0 = time.perf_counter()
+            logits = net.lstm(feats.view(Z, T, *feats.shape[1:]))
+            lstm_host = time.perf_counter() - t0
+            ev[3].record()
+            torch.argmax(torch.softmax(logits, dim=2), dim=2)
+            ev[4].record()
+            ev[4].synchronize()
+            ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(4)]
+            print(f"  by part, run {i + 1}: upload + z-score + pad "
+                  f"{ms[0]:.4f} ms, U-Net ({Z * T} frames at {AO_SIZE}^2) "
+                  f"{ms[1]:.4f} ms, ConvLSTM (2 x {T} steps) {ms[2]:.4f} ms "
+                  f"(host issued it in {1e3 * lstm_host:.4f} ms), softmax + "
+                  f"argmax {ms[3]:.4f} ms [{card}]")
+        unet_flop = conv_flops(net.unet, lambda: net.unet(
+            seq.reshape(Z * T, 1, AO_SIZE, AO_SIZE)))
+        cell = net.lstm.forward_cell
+        lstm_flop = 2 * T * 2.0 * AO_SIZE ** 2 * cell.weight.numel()
+        print(f"  U-Net {unet_flop / 1e12:.4f} TFLOP "
+              f"({unet_flop / (Z * T) / 1e9:.3f} GFLOP per frame) at "
+              f"{unet_flop / ms[1] / 1e9:.2f} TFLOP/s; "
+              f"ConvLSTM {lstm_flop / 1e12:.4f} TFLOP at "
+              f"{lstm_flop / ms[2] / 1e9:.2f} TFLOP/s [{card}]")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            net.lstm(feats.view(Z, T, *feats.shape[1:]))
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
+    n_ops = sum(e.count for e in kern)
+    if busy > 0:
+        print(f"  ConvLSTM under torch.profiler: {n_ops} device ops "
+              f"({n_ops / (2 * T):.1f} per step), busy {busy:.4f} ms of the "
+              f"{ms[2]:.4f} ms unprofiled span "
+              f"({100 * (1 - busy / ms[2]):.1f} % idle) [{card}]")
+    else:
+        print("  ConvLSTM under torch.profiler: no device time recorded "
+              "(busy share not measured)")
+
+    # the card against the port's CPU path on the cine cut to 10 frames:
+    # labels, and the area row from each side's segs
+    cut = np.ascontiguousarray(cine[..., :10])
+    segs = {"cuda": engine.segment_cine(cut),
+            "cpu": load_aortic_engine(AO_BUNDLE, "cpu").segment_cine(cut)}
+    agree = float((segs["cuda"] == segs["cpu"]).mean())
+    rows = {}
+    for dev, seg in segs.items():
+        d = os.path.join(work, f"ao_{dev}")
+        os.makedirs(d)
+        save_nifti(nifti, os.path.join(d, "ao.nii.gz"), cut, AFFINE_AO)
+        save_nifti(nifti, os.path.join(d, "seg_ao.nii.gz"),
+                   seg.astype(np.float64), AFFINE_AO)
+        val = aortic_area_measures(d, 40.0)
+        rows[dev] = np.array(aortic_row(val) if val else [np.nan] * 6)
+    rel = np.abs(rows["cuda"] - rows["cpu"]).max() / np.abs(rows["cpu"]).max()
+    print(f"  card vs CPU on {cut.shape}: label agreement {agree:.6f}; area "
+          f"row card {np.round(rows['cuda'], 4).tolist()}, CPU "
+          f"{np.round(rows['cpu'], 4).tolist()}, max difference {rel:.3e} of "
+          f"the largest (bound {AREA_RTOL})")
+    if agree < 0.999:
+        raise AssertionError(f"aortic labels agree on only {agree}")
+    if not (np.isfinite(rows["cpu"]).all() and np.allclose(
+            rows["cuda"], rows["cpu"], rtol=AREA_RTOL, atol=0)):
+        raise AssertionError(f"aortic rows differ: {rows}")
 
 
 def main() -> int:
@@ -1144,10 +1348,11 @@ def main() -> int:
         print(f"  earlier paths' launches {launches}")
         # the kernels line counts the cohort's 1-worker run: the path a
         # user runs by default, through every kernel
-        launches = cohort_phase(card, work)
+        launches, truth = cohort_phase(card, work)
+        aortic_phase(card, work, truth)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[6/6] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[7/7] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",

@@ -270,3 +270,52 @@ def test_bspline_kernels_at_the_la_shapes(card, shape, spacing, lattice):
         torch.testing.assert_close(
             c.grad, tb.bspline_adjoint_plain(G, (Cx, Cy), spacing),
             atol=ADJOINT_ATOL, rtol=0)
+
+
+def _ao_cine(X, Y, T, seed=0):
+    """Aortic cine (X, Y, 1, T) int16: pulsating ascending and descending
+    aortic disks in noise (the geometry of tests/phantom.py::ao_phantom)."""
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    pulse = 1.0 + 0.15 * np.sin(2 * np.pi * np.arange(T) / T)
+    image = np.zeros((X, Y, 1, T), np.float32)
+    for t in range(T):
+        aa = (xx - (X // 2 - 14)) ** 2 + (yy - Y // 2) ** 2 <= (9 * pulse[t]) ** 2
+        da = (xx - (X // 2 + 16)) ** 2 + (yy - Y // 2) ** 2 <= (6 * pulse[t]) ** 2
+        img = np.where(aa, 900.0, np.where(da, 850.0, 0.0))
+        image[..., 0, t] = np.clip(img + rng.randn(X, Y) * 50.0, 0, 1000)
+    return np.round(image).astype(np.int16)
+
+
+@pytest.mark.cuda
+def test_aortic_engine_on_card_matches_cpu(card, tmp_path):
+    """The trained UNet-LSTM's full-scan deploy on the card against the
+    port's CPU path: labels on >= 99.9 % of voxels, the area row at rtol
+    1e-6."""
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
+                                                        aortic_row)
+
+    image = _ao_cine(120, 98, 8)
+    rows = {}
+    segs = {}
+    for dev in ("cpu", "cuda"):
+        pending = load_aortic_engine(os.path.join(
+            WEIGHTS, "UNet-LSTM_ao.npz"), dev).segment_cine_dispatch(image)
+        segs[dev] = pending.result()
+        assert (pending.device_ms is not None) == (dev == "cuda")
+        d = tmp_path / dev
+        d.mkdir()
+        hdr = nifti.Nifti1Header()
+        hdr.dim[0] = 4
+        hdr.dim[1:5] = image.shape
+        hdr.pixdim[1:5] = (1.8, 1.8, 10.0, 0.03)
+        affine = np.diag([-1.8, -1.8, 10.0, 1.0])
+        nifti.save(nifti.Nifti1Image(image, affine, hdr), str(d / "ao.nii.gz"))
+        nifti.save(nifti.Nifti1Image(segs[dev].astype(np.float64), affine,
+                                     hdr), str(d / "seg_ao.nii.gz"))
+        rows[dev] = aortic_row(aortic_area_measures(str(d), 40.0))
+    assert segs["cpu"].shape == image.shape and segs["cpu"].max() == 2
+    assert (segs["cpu"] == segs["cuda"]).mean() >= 0.999
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-6)

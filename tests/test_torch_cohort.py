@@ -23,7 +23,7 @@ import pandas as pd
 import pytest
 import torch
 
-from phantom import write_subject
+from phantom import ao_phantom, write_subject
 from ukbb_cardiac_tpu.ckpt import store as jstore
 from ukbb_cardiac_tpu.infer.deploy import \
     load_segmentation_model as jax_load
@@ -35,6 +35,7 @@ from ukbb_cardiac_tpu_torch import kernels
 from ukbb_cardiac_tpu_torch.cli import run_cohort
 from ukbb_cardiac_tpu_torch.infer.deploy import \
     load_segmentation_model as port_load
+from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine as TEngine
 from ukbb_cardiac_tpu_torch.parallel import cohort as tcohort
 from ukbb_cardiac_tpu_torch.parallel import run_cohort_full, run_cohort_sa
@@ -49,6 +50,8 @@ torch.set_num_threads(1)
 STRAIN_SEGMENT_ATOL = 2.0
 STRAIN_GLOBAL_ATOL = 0.5
 SA_STAGES = {"segment", "volumes", "wall_thickness", "strain"}
+AO_BUNDLE = os.path.join(os.path.dirname(__file__), "fixtures",
+                         "bench_weights", "UNet-LSTM_ao.npz")
 
 
 @pytest.fixture(scope="module")
@@ -191,16 +194,58 @@ def test_cli_summary_manifest_and_exit_code(tmp_path, bundle, capsys):
     assert json.load(open(manifest))["succeeded"] == ["subj01"]
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--model_path_ao", "ao.npz"], "A10"),
-    (["--pressure_csv", "bp.csv"], "A10"),
-    (["--mesh_devices", "2"], "multi-GPU"),
+@pytest.mark.parametrize("extra, error, match", [
+    # as the JAX CLI: pressures without the aortic model are a usage error
+    (["--pressure_csv", "bp.csv"], SystemExit, "2"),
+    (["--mesh_devices", "2"], NotImplementedError, "multi-GPU"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, bundle, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_is_not_ported(tmp_path, bundle, extra, error,
+                                        match):
+    with pytest.raises(error, match=match):
         run_cohort.main(["--data_dir", str(tmp_path), "--model_path", bundle,
                          "--output_dir", str(tmp_path / "csv"),
                          "--device", "cpu"] + extra)
+
+
+def _ao_only_subject(root, eid="1000001", T=3):
+    """A subject with an aortic cine and nothing else: the SA and LA
+    stages skip on the missing files, the aortic stage runs."""
+    image, _ = ao_phantom(96, 96, T, rng=np.random.RandomState(0))
+    d = os.path.join(root, eid)
+    os.makedirs(d)
+    hdr = nifti.Nifti1Header()
+    hdr.dim[0] = 4
+    hdr.dim[1:5] = image.shape
+    hdr.pixdim[1:5] = (1.8, 1.8, 10.0, 0.04)
+    nifti.save(nifti.Nifti1Image(np.round(image).astype(np.int16),
+                                 np.diag([-1.8, -1.8, 10.0, 1.0]), hdr),
+               os.path.join(d, "ao.nii.gz"))
+    return d
+
+
+@pytest.mark.parametrize("with_pressure", [False, True])
+def test_cli_runs_the_aortic_flags(tmp_path, bundle, with_pressure):
+    """``--model_path_ao`` alone selects full mode; with ``--pressure_csv``
+    the distensibility columns are finite."""
+    d = _ao_only_subject(str(tmp_path / "data"))
+    extra = ["--model_path_ao", AO_BUNDLE]
+    if with_pressure:
+        bp = tmp_path / "bp.csv"
+        col = "Central pulse pressure during PWA"
+        bp.write_text(f"eid,{col},{col}\n,12678-2.0,12678-2.1\n"
+                      f"1000001,40,44\n")
+        extra += ["--pressure_csv", str(bp)]
+    assert run_cohort.main(["--data_dir", str(tmp_path / "data"),
+                            "--model_path", bundle, "--output_dir",
+                            str(tmp_path / "csv"), "--device", "cpu"]
+                           + extra) == 0
+    assert os.path.exists(os.path.join(d, "seg_ao.nii.gz"))
+    assert sorted(os.listdir(tmp_path / "csv")) == ["table_aortic_area.csv"]
+    tab = pd.read_csv(tmp_path / "csv" / "table_aortic_area.csv",
+                      index_col=0)
+    assert tab.shape == (1, 6)
+    assert np.isfinite(tab.values[0, [0, 1, 3, 4]]).all()
+    assert np.isfinite(tab.values[0, [2, 5]]).all() == with_pressure
 
 
 def test_cli_and_drivers_raise_without_card(tmp_path, bundle, engines,
@@ -213,13 +258,21 @@ def test_cli_and_drivers_raise_without_card(tmp_path, bundle, engines,
         run_cohort_sa(str(tmp_path), engines[1], verbose=False)
 
 
-def test_full_mode_refuses_the_aortic_stage(tmp_path, engines):
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_cohort_full(str(tmp_path), {"sa": engines[1], "ao": object()},
-                        device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_cohort_full(str(tmp_path), {"sa": engines[1]},
-                        pressure={1: 40.0}, device="cpu", verbose=False)
+def test_full_mode_runs_the_aortic_stage(tmp_path, engines):
+    """An ``'ao'`` engine and ``pressure=`` (eid -> central pulse
+    pressure) give the aortic row; a subject without a pressure gets NaN
+    distensibilities."""
+    _ao_only_subject(str(tmp_path), "1000001")
+    _ao_only_subject(str(tmp_path), "1000002")
+    engine = load_aortic_engine(AO_BUNDLE, "cpu")
+    res = run_cohort_full(str(tmp_path), {"sa": engines[1], "ao": engine},
+                          pressure={1000001: 40.0}, device="cpu",
+                          verbose=False)
+    assert sorted(res.fleet.succeeded) == ["1000001", "1000002"]
+    assert all("aortic" in st for st in res.stage_seconds.values())
+    rows = res.aortic_rows
+    assert np.isfinite(rows["1000001"]).all()
+    assert np.isnan(np.asarray(rows["1000002"])[[2, 5]]).all()
 
 
 def test_select_subjects_and_shards(tmp_path):

@@ -63,6 +63,14 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.cli.run_cohort",
     "ukbb_cardiac_tpu_torch.cli.eval_atrial_volume",
     "ukbb_cardiac_tpu_torch.cli.eval_strain_lax",
+    # the aortic slice's
+    "ukbb_cardiac_tpu_torch.models.unet",
+    "ukbb_cardiac_tpu_torch.models.convlstm",
+    "ukbb_cardiac_tpu_torch.models.wrappers",
+    "ukbb_cardiac_tpu_torch.infer.deploy_ao",
+    "ukbb_cardiac_tpu_torch.phenotype.aorta",
+    "ukbb_cardiac_tpu_torch.cli.deploy_network_ao",
+    "ukbb_cardiac_tpu_torch.cli.eval_aortic_area",
 }
 
 

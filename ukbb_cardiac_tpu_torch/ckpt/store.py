@@ -15,10 +15,12 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from ukbb_cardiac_tpu_torch.models.fcn import FCNConfig
+from ukbb_cardiac_tpu_torch.models.unet import UNetConfig
 
 _META_KEY = "__meta__"
 
-_CFG_TYPES = {"fcn": FCNConfig}
+_CFG_TYPES = {"fcn": FCNConfig, "unet": UNetConfig,
+              "temporal_unet": UNetConfig, "unet_lstm": UNetConfig}
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -45,11 +47,20 @@ def _tuplize_names(obj):
 
 
 def load_model(path: str) -> Tuple[str, Any, Any, Dict, Dict]:
-    """Read a model bundle -> (kind, cfg, names, params, state).
+    """Read a model bundle -> (kind, cfg, names, params, state)."""
+    return load_model_with_extra(path)[:5]
+
+
+def load_model_with_extra(path: str) -> Tuple[str, Any, Any, Dict, Dict,
+                                              Dict]:
+    """Read a model bundle -> (kind, cfg, names, params, state, extra).
 
     ``params``/``state`` are nested dicts of numpy arrays in the JAX
     package's layouts (HWIO kernels).  ``cfg`` is an :class:`FCNConfig`
-    for kind ``fcn`` and the raw config dict for kinds not ported yet.
+    for kind ``fcn``, a :class:`UNetConfig` for ``unet``,
+    ``temporal_unet`` and ``unet_lstm``, and the raw config dict for kinds
+    not ported yet.  ``extra`` is the bundle's free-form metadata (e.g.
+    ``bidirectional``).
     """
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z[_META_KEY].tobytes()).decode("utf-8"))
@@ -69,4 +80,5 @@ def load_model(path: str) -> Tuple[str, Any, Any, Dict, Dict]:
     else:
         cfg = cfg_dict
     names = _tuplize_names(meta["names"])
-    return kind, cfg, names, _unflatten(flat_p), _unflatten(flat_s)
+    return (kind, cfg, names, _unflatten(flat_p), _unflatten(flat_s),
+            meta.get("extra", {}))

@@ -5,16 +5,17 @@ Counterpart of ``ukbb_cardiac_tpu/cli/run_cohort.py``: one command runs
     segmentation → ventricular volumes → wall thickness → strain
 
 per subject over a worker pool, and with any of ``--model_path_la_2ch /
---model_path_la_4ch / --model_path_seg4`` the long-axis chain after it
-(LA deploys → atrial volumes → LA strain).  Outputs per subject match the
-individual CLIs file for file; aggregate CSVs go to ``--output_dir`` in
-the same schemas, and the summary line, manifest and exit code are the
-JAX CLI's.
+--model_path_la_4ch / --model_path_seg4 / --model_path_ao`` the complete
+``demo_pipeline.py`` chain (LA deploys → atrial volumes → LA strain →
+aortic deploy → aortic areas); ``--pressure_csv`` supplies the Vicorder
+central pulse pressures for the aortic distensibility.  Outputs per
+subject match the individual CLIs file for file; aggregate CSVs go to
+``--output_dir`` in the same schemas, and the summary line, manifest and
+exit code are the JAX CLI's.
 
 The JAX CLI's flags plus ``--device`` (default ``cuda``; without a card it
 raises unless ``--device cpu`` is given).  Not ported, and raising when
-asked for: the aortic stage (``--model_path_ao``, ``--pressure_csv``;
-ROADMAP A10) and ``--mesh_devices`` above 1 (multi-GPU, A14).
+asked for: ``--mesh_devices`` above 1 (multi-GPU, ROADMAP A14).
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.run_cohort --data_dir <dir> \
@@ -55,9 +56,10 @@ def main(argv=None):
     parser.add_argument("--model_path_la_4ch", metavar="path", default="")
     parser.add_argument("--model_path_seg4", metavar="path", default="")
     parser.add_argument("--model_path_ao", metavar="path", default="",
-                        help="Not ported (the aortic stage): raises.")
+                        help="Aortic model bundle (.npz, UNet-LSTM)")
     parser.add_argument("--pressure_csv", metavar="csv_name", default="",
-                        help="Not ported (the aortic stage): raises.")
+                        help="UKB blood-pressure spreadsheet for aortic "
+                             "distensibility (fields 12678-2.0/2.1)")
     parser.add_argument("--start_idx", type=int, default=0,
                         help="First subject index (sorted order) — the "
                              "reference eval scripts' manual sharding "
@@ -68,10 +70,9 @@ def main(argv=None):
                         help="'cuda' (default) or 'cpu'.")
     args = parser.parse_args(argv)
 
-    if args.model_path_ao or args.pressure_csv:
-        raise NotImplementedError("the aortic stage (--model_path_ao, "
-                                  "--pressure_csv; ROADMAP A10) is not "
-                                  "ported")
+    if args.pressure_csv and not args.model_path_ao:
+        parser.error("--pressure_csv is only used by the aortic stage; "
+                     "pass --model_path_ao as well")
     if args.mesh_devices > 1:
         raise NotImplementedError("--mesh_devices > 1 (multi-GPU) is not "
                                   "ported")
@@ -95,14 +96,25 @@ def main(argv=None):
                   start_idx=args.start_idx, end_idx=args.end_idx,
                   device=device)
     if any((args.model_path_la_2ch, args.model_path_la_4ch,
-            args.model_path_seg4)):
+            args.model_path_seg4, args.model_path_ao)):
         engines = {"sa": engine}
         for key, path in (("la_2ch", args.model_path_la_2ch),
                           ("la_4ch", args.model_path_la_4ch),
                           ("seg4", args.model_path_seg4)):
             if path:
                 engines[key] = slice_engine(path)
-        result = run_cohort_full(args.data_dir, engines, **common)
+        if args.model_path_ao:
+            from ukbb_cardiac_tpu_torch.infer.deploy_ao import \
+                load_aortic_engine
+            engines["ao"] = load_aortic_engine(args.model_path_ao, device,
+                                               dtype)
+        pressure = None
+        if args.pressure_csv:
+            from ukbb_cardiac_tpu_torch.phenotype.aorta import \
+                load_central_pulse_pressure
+            pressure = load_central_pulse_pressure(args.pressure_csv)
+        result = run_cohort_full(args.data_dir, engines, pressure=pressure,
+                                 **common)
     else:
         result = run_cohort_sa(args.data_dir, engine, **common)
     n_ok = len(result.fleet.succeeded)

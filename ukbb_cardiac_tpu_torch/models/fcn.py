@@ -7,8 +7,8 @@ conv, upsampled to full resolution with fixed bilinear transposed convs
 of factor 2^l, merged, and a two-layer 1x1 head producing class logits.
 
 NCHW inside; :func:`apply_fcn` takes (N, X, Y, C) images and returns
-(N, X, Y, n_class) logits like the JAX function.  The ResNet-FCN and
-U-Net are not ported yet.
+(N, X, Y, n_class) logits like the JAX function.  The ResNet-FCN is not
+ported yet; the U-Net is ``models/unet.py``.
 """
 
 from __future__ import annotations

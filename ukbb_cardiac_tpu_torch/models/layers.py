@@ -10,6 +10,11 @@ package's TF semantics:
   the padding is applied with ``F.pad``.
 - ``tf.layers.batch_normalization``: epsilon 1e-3, normalised in float32
   as ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``.
+- ``tf.nn.conv2d_transpose`` / ``conv3d_transpose`` ('SAME'): the bundles
+  store these kernels already flipped, in correlation orientation, for an
+  input-dilated convolution.  Here they run as ``F.conv_transpose2d`` /
+  ``F.conv_transpose3d`` with the kernel flipped back and its channel axes
+  swapped, the output cropped to the 'SAME' window.
 - ``transpose_upsample2d`` with the frozen triangular kernel is the
   separable interpolation ``A_x @ img @ A_y^T``; each row of ``A`` has at
   most two non-zeros.
@@ -49,26 +54,84 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     return out
 
 
+def conv3d(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1, 1),
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """NCDHW convolution with TF 'SAME' padding; ``weight`` OIDHW."""
+    pads = []
+    for n, k, s in reversed(list(zip(x.shape[2:], weight.shape[2:],
+                                     stride))):
+        pads += _same_pad(n, k, s)
+    if any(pads):
+        x = F.pad(x, pads)
+    out = F.conv3d(x, weight.to(x.dtype), stride=tuple(stride))
+    if bias is not None:
+        out = out + bias.to(out.dtype).view(1, -1, 1, 1, 1)
+    return out
+
+
+def _conv_transpose(x, weight, stride, conv_transpose):
+    """TF 'SAME' transposed convolution from a correlation-orientation
+    kernel (O, I, *k): the input-dilated convolution with padding
+    ``_same_transpose_padding`` equals ``conv_transpose`` of the kernel
+    flipped back and channel-swapped, cropped by the forward 'SAME'
+    padding (lo at the start, hi at the end of each axis)."""
+    ks = weight.shape[2:]
+    w = weight.to(x.dtype).transpose(0, 1).flip(
+        list(range(2, weight.dim())))
+    out = conv_transpose(x, w, stride=tuple(stride))
+    index = [slice(None), slice(None)]
+    for k, s, n in zip(ks, stride, out.shape[2:]):
+        lo, hi = _same_transpose_padding(k, s)
+        index.append(slice(k - 1 - lo, n - (k - 1 - hi)))
+    return out[tuple(index)]
+
+
+def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, stride: int = 2,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """NCHW TF-SAME transposed convolution (output ``stride`` x the input)
+    with an OIHW kernel in correlation orientation, as
+    ``layers.conv2d_transpose`` applies the bundles' kernels."""
+    out = _conv_transpose(x, weight, (stride, stride), F.conv_transpose2d)
+    if bias is not None:
+        out = out + bias.to(out.dtype)[None, :, None, None]
+    return out
+
+
+def conv3d_transpose(x: torch.Tensor, weight: torch.Tensor,
+                     stride=(1, 2, 2),
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """NCDHW TF-SAME transposed convolution, OIDHW correlation kernel."""
+    out = _conv_transpose(x, weight, stride, F.conv_transpose3d)
+    if bias is not None:
+        out = out + bias.to(out.dtype).view(1, -1, 1, 1, 1)
+    return out
+
+
 def batch_norm(x: torch.Tensor, gamma, beta, moving_mean,
                moving_variance) -> torch.Tensor:
-    """Inference-mode BatchNorm over the channel axis (dim 1), computed in
-    float32 and cast back to the input dtype."""
+    """Inference-mode BatchNorm over the channel axis (dim 1) of a 4D or
+    5D input, computed in float32 and cast back to the input dtype."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
     inv = torch.rsqrt(moving_variance + BN_EPSILON) * gamma
-    y = ((x.float() - moving_mean[None, :, None, None])
-         * inv[None, :, None, None] + beta[None, :, None, None])
+    y = ((x.float() - moving_mean.view(shape)) * inv.view(shape)
+         + beta.view(shape))
     return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):
-    """conv2d (no bias) -> BN(eval) -> ReLU (``network.py:19-25``); the
-    output keeps the input dtype."""
+    """conv (no bias) -> BN(eval) -> ReLU (``network.py:19-52``); the
+    output keeps the input dtype.  ``dims`` 2 or 3; ``transpose`` makes
+    the conv a TF-SAME transposed one whose kernel is stored in
+    correlation orientation, as in the bundles."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 stride: int = 1):
+                 stride=1, dims: int = 2, transpose: bool = False):
         super().__init__()
         self.stride = stride
+        self.dims = dims
+        self.transpose = transpose
         self.weight = nn.Parameter(
-            torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+            torch.zeros((out_ch, in_ch) + (kernel_size,) * dims))
         self.gamma = nn.Parameter(torch.ones(out_ch))
         self.beta = nn.Parameter(torch.zeros(out_ch))
         self.register_buffer("moving_mean", torch.zeros(out_ch))
@@ -78,8 +141,15 @@ class ConvBN(nn.Module):
         return batch_norm(x, self.gamma, self.beta, self.moving_mean,
                           self.moving_variance)
 
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dims == 2:
+            fn = conv2d_transpose if self.transpose else conv2d
+        else:
+            fn = conv3d_transpose if self.transpose else conv3d
+        return fn(x, self.weight, self.stride)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(conv2d(x, self.weight, self.stride)))
+        return torch.relu(self.bn(self.conv(x)))
 
 
 def linear_1d(sz: int) -> np.ndarray:

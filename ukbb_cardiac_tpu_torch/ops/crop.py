@@ -1,5 +1,6 @@
-"""Deploy padding arithmetic (``common/deploy_network.py:97-100``) and the
-foreground bounding box of ``auto_crop_image``."""
+"""Deploy padding arithmetic (``common/deploy_network.py:97-100``, the
+aortic deploy's fixed grid) and the foreground bounding box of
+``auto_crop_image``."""
 
 from __future__ import annotations
 
@@ -18,6 +19,14 @@ def pad_to_multiple(X: int, Y: int, multiple: int = 16):
     Y2 = int(math.ceil(Y / float(multiple))) * multiple
     x_pre, y_pre = int((X2 - X) / 2), int((Y2 - Y) / 2)
     return x_pre, (X2 - X) - x_pre, y_pre, (Y2 - Y) - y_pre
+
+
+def pad_to_size(X: int, Y: int, size: int):
+    """Centred padding amounts to reach a fixed (size, size) canvas, as
+    the aortic deployer pads to 256 x 256 (``deploy_network_ao.py:104-108``).
+    Returns ``(x_pre, x_post, y_pre, y_post)``."""
+    x_pre, y_pre = int((size - X) / 2), int((size - Y) / 2)
+    return x_pre, (size - X) - x_pre, y_pre, (size - Y) - y_pre
 
 
 def foreground_bbox(image, reserve: int = 0):

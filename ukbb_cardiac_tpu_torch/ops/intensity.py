@@ -1,10 +1,11 @@
-"""Intensity rescaling: host (numpy) and device (torch) versions.
+"""Intensity rescaling and z-score normalisation: host (numpy) and device
+(torch) versions.
 
-Reference semantics: ``common/image_utils.py:60-77``.  The device version
-matches ``ukbb_cardiac_tpu/ops/intensity.py::rescale_intensity_jax``:
-exact order statistics with numpy's 'linear' interpolation, ≤16-bit
-integer input taken in its own type, and NaN propagating to every
-percentile.  ``torch.quantile`` is not used: it refuses inputs above
+Reference semantics: ``common/image_utils.py:60-77``.  The device versions
+match ``ukbb_cardiac_tpu/ops/intensity.py::rescale_intensity_jax`` and
+``normalise_intensity_jax``: exact order statistics with numpy's 'linear'
+interpolation, ≤16-bit integer input taken in its own type, and NaN
+propagating to every percentile.  ``torch.quantile`` is not used: it refuses inputs above
 2^24 elements, and one 192x208x10x50 cine has 19,968,000.
 """
 
@@ -62,3 +63,28 @@ def rescale_intensity_torch(image: torch.Tensor, thres=(1.0, 99.0)):
     val_l, val_h = percentiles(image, (thres[0], thres[1]))
     out = torch.clamp(image.float(), val_l, val_h)
     return (out - val_l) / (val_h - val_l)
+
+
+def normalise_intensity(image, thres_roi=10.0):
+    """Z-score normalise over the ROI of voxels >= the ``thres_roi``-th
+    percentile (host/numpy)."""
+    image = np.asarray(image)
+    val_l = np.percentile(image, thres_roi)
+    roi = image >= val_l
+    mu, sigma = np.mean(image[roi]), np.std(image[roi])
+    eps = 1e-6
+    return (image - mu) / (sigma + eps)
+
+
+def normalise_intensity_torch(image: torch.Tensor, thres_roi=10.0):
+    """Device version of :func:`normalise_intensity`: float32.  The ROI's
+    mean and standard deviation are masked sums over ``n = max(|ROI|, 1)``
+    voxels; the percentile is taken on the input's own type."""
+    (val_l,) = percentiles(image, (thres_roi,))
+    image = image.float()
+    roi = (image >= val_l).float()
+    n = torch.clamp(roi.sum(), min=1.0)
+    mu = (image * roi).sum() / n
+    sigma = torch.sqrt((roi * (image - mu) ** 2).sum() / n)
+    eps = 1e-6
+    return (image - mu) / (sigma + eps)

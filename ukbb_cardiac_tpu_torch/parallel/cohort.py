@@ -5,16 +5,16 @@ the SA chain
 
     segmentation → volumes → wall thickness → strain motion tracking
 
-and, in full mode, the long-axis chain after it
+and, in full mode, the long-axis chain and the aortic stage after it
 
     LA deploys (la_2ch, la_4ch, la_4ch seg4) → atrial volumes → LA strain
+    → aortic deploy → aortic areas
 
 with subjects processed by a thread pool (``parallel/fleet.py``), one
 worker by default: on one H100 three workers ran slower than one, the
 strain stages being bound by the host's launches (PERF.md section 5).
 Every worker issues its work on the default stream.  The per-subject
-files and the aggregate CSVs are the reference CLIs'.  The aortic stage
-(ROADMAP A10) is not ported: asking for it raises.
+files and the aggregate CSVs are the reference CLIs'.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class CohortResult:
         self.strain_rows: Dict[str, list] = {}
         self.atrial_rows: Dict[str, dict] = {}
         self.la_strain_rows: Dict[str, list] = {}
+        self.aortic_rows: Dict[str, list] = {}
         self.stage_seconds: Dict[str, Dict[str, float]] = {}
         self.wall_seconds: float = 0.0
 
@@ -240,38 +241,36 @@ def write_cohort_csvs(result: CohortResult, output_dir: str) -> None:
             .to_csv(os.path.join(output_dir, "table_strain_sax.csv"))
 
 
-def _no_aortic(engines, pressure) -> None:
-    if engines.get("ao") is not None or pressure is not None:
-        raise NotImplementedError("the aortic stage (ROADMAP A10: U-Net, "
-                                  "ConvLSTM, deploy_ao) is not ported")
-
-
 def process_subject_full(engines: Dict[str, object], data_dir: str,
+                         pressure_value: Optional[float] = None,
                          eval_dice: bool = False,
                          result: Optional[CohortResult] = None,
                          skip_existing_seg: bool = True,
                          device=None) -> Dict[str, float]:
-    """The per-subject pipeline of ``demo_pipeline.py:63-122`` without its
-    aortic stage:
+    """The COMPLETE per-subject pipeline (``demo_pipeline.py:63-122``):
 
         SA chain (segment → volumes → wall thickness → strain)
         → LA deploys (la_2ch, la_4ch, la_4ch --seg4) → atrial volumes
-        → LA strain
+        → LA strain → aortic deploy → aortic areas
 
     ``engines``: {'sa': InferenceEngine, 'la_2ch': ..., 'la_4ch': ...,
-    'seg4': ...} — any entry may be absent or None to skip its stage (its
-    phenotype stages then skip on missing files, like the reference).  An
-    ``'ao'`` engine raises: the aortic stage is not ported.  Strain
-    stages run on ``device`` (default the card).
+    'seg4': ..., 'ao': AorticEngine} — any entry may be absent or None to
+    skip its stage (its phenotype stages then skip on missing files, like
+    the reference).  ``pressure_value``: this subject's central pulse
+    pressure for distensibility (None or NaN → NaN distensibility).
+    Strain stages run on ``device`` (default the card); the aortic deploy
+    on its engine's device.
     """
     from ukbb_cardiac_tpu_torch.infer.deploy import (_finish_subject_sequence,
                                                      _start_subject_sequence)
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import deploy_subject_ao
+    from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
+                                                        aortic_row)
     from ukbb_cardiac_tpu_torch.phenotype.atrium import atrial_volume_measures
     from ukbb_cardiac_tpu_torch.phenotype.qc import la_pass_quality_control
     from ukbb_cardiac_tpu_torch.phenotype.strain_la import (
         finish_la_motion, start_la_motion_dispatch)
 
-    _no_aortic(engines, None)
     subject = os.path.basename(data_dir.rstrip("/"))
     stages = process_subject_sa(
         engines.get("sa"), data_dir, eval_dice=eval_dice,
@@ -325,11 +324,30 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
             la_strain_row = [df_l.iloc[i, :].min() for i in range(7)]
     stages["strain_la"] = time.time() - t0
 
+    # --- aortic deploy + areas (deploy_network_ao.py, eval_aortic_area) ---
+    t0 = time.time()
+    ao_row = None
+    ao_engine = engines.get("ao")
+    if ao_engine is not None and \
+            os.path.exists(os.path.join(data_dir, "ao.nii.gz")):
+        if not skip_existing_seg:
+            seg_ao = os.path.join(data_dir, "seg_ao.nii.gz")
+            if os.path.exists(seg_ao):
+                os.remove(seg_ao)
+        deploy_subject_ao(ao_engine, data_dir)
+        pp = float("nan") if pressure_value is None else pressure_value
+        val = aortic_area_measures(data_dir, pp)
+        if val is not None:
+            ao_row = aortic_row(val)
+    stages["aortic"] = time.time() - t0
+
     if result is not None:
         if atrial_row is not None:
             result.atrial_rows[subject] = atrial_row
         if la_strain_row is not None:
             result.la_strain_rows[subject] = la_strain_row
+        if ao_row is not None:
+            result.aortic_rows[subject] = ao_row
         result.stage_seconds.setdefault(subject, {}).update(stages)
     return stages
 
@@ -341,17 +359,22 @@ def run_cohort_full(data_root: str, engines: Dict[str, object],
                     verbose: bool = True, skip_existing_seg: bool = True,
                     start_idx: int = 0, end_idx: int = -1,
                     device=None) -> CohortResult:
-    """The per-subject pipeline over a cohort on ``workers`` threads —
-    ``demo_pipeline.py`` per subject, not stage by stage, without the
-    aortic stage.  ``pressure`` (central pulse pressures for the aortic
-    distensibility) and an ``'ao'`` engine raise before any subject runs:
-    the aortic stage is not ported."""
-    _no_aortic(engines, pressure)
+    """The complete per-subject pipeline over a cohort on ``workers``
+    threads — ``demo_pipeline.py`` per subject, not stage by stage.
+    ``pressure``: optional mapping eid → central pulse pressure (e.g. the
+    Series of :func:`~ukbb_cardiac_tpu_torch.phenotype.aorta.
+    load_central_pulse_pressure`)."""
     dev = resolve_device(device)
 
     def process(data_dir, result):
-        process_subject_full(engines, data_dir, eval_dice=eval_dice,
-                             result=result,
+        pp = None
+        if pressure is not None:
+            try:
+                pp = float(pressure[int(os.path.basename(data_dir))])
+            except (KeyError, ValueError, TypeError):
+                pp = None
+        process_subject_full(engines, data_dir, pressure_value=pp,
+                             eval_dice=eval_dice, result=result,
                              skip_existing_seg=skip_existing_seg,
                              device=dev)
 
@@ -365,11 +388,12 @@ def run_cohort_full(data_root: str, engines: Dict[str, object],
 
 
 def write_cohort_full_csvs(result: CohortResult, output_dir: str) -> None:
-    """Aggregate CSVs for the LA stages (reference schemas:
-    ``eval_atrial_volume.py:165-168``, ``eval_strain_lax.py:66-75``)."""
+    """Aggregate CSVs for the LA and aortic stages (reference schemas:
+    ``eval_atrial_volume.py:165-168``, ``eval_strain_lax.py:66-75``,
+    ``eval_aortic_area.py:86-90``)."""
     from ukbb_cardiac_tpu_torch.cli.eval_strain_lax import \
         COLUMNS as LA_STRAIN_COLUMNS
-    from ukbb_cardiac_tpu_torch.phenotype import atrium
+    from ukbb_cardiac_tpu_torch.phenotype import aorta, atrium
 
     if result.atrial_rows:
         # atrial_volume_measures builds its dict in the columns' order
@@ -380,3 +404,7 @@ def write_cohort_full_csvs(result: CohortResult, output_dir: str) -> None:
         pd.DataFrame.from_dict(result.la_strain_rows, orient="index")\
             .set_axis(LA_STRAIN_COLUMNS, axis=1)\
             .to_csv(os.path.join(output_dir, "table_strain_lax.csv"))
+    if result.aortic_rows:
+        pd.DataFrame.from_dict(result.aortic_rows, orient="index")\
+            .set_axis(aorta.COLUMNS, axis=1)\
+            .to_csv(os.path.join(output_dir, "table_aortic_area.csv"))

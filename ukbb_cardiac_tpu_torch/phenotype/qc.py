@@ -1,12 +1,11 @@
 """Quality-control gates — the reference's runtime validators
-(``cardiac_utils.py:77-169,1616-1652``).
+(``cardiac_utils.py:77-169,1616-1652,1739-1796``).
 
 They act as per-subject gates that *skip* bad data rather than fail,
 matching the reference's defensive pipeline style; the SA and LA gates
 accept either a filename or an in-memory array.
 
-The port's copy of ``ukbb_cardiac_tpu/phenotype/qc.py`` without the
-aorta gate, which comes with the aortic slice.
+The port's copy of ``ukbb_cardiac_tpu/phenotype/qc.py``.
 """
 
 from __future__ import annotations
@@ -114,4 +113,46 @@ def atrium_pass_quality_control(label, label_dict) -> bool:
             if ratio >= 2 or ratio <= 0.5:
                 print(f"There is abrupt change of area at time frame {t}.")
                 return False
+    return True
+
+
+def aorta_pass_quality_control(image, seg) -> bool:
+    """Aorta QC (``cardiac_utils.py:1739-1796``): per vessel —
+    (1) area > 0 at all frames; (2) max intensity in the structure at any
+    frame < 3x its ED mean intensity; (3) ≤1 connected component >10 px
+    (8-connectivity); (4) no ≥2x / ≤0.5x frame-to-frame area change;
+    (5) max/min area ratio < 2."""
+    image = np.asanyarray(image)
+    seg = np.asanyarray(seg)
+    T = seg.shape[3]
+    for l_name, l in [("AAo", 1), ("DAo", 2)]:
+        for t in range(T):
+            if np.sum(seg[:, :, :, t] == l) == 0:
+                print(f"The area of {l_name} is 0 at time frame {t}.")
+                return False
+
+        mean_intensity_ED = image[:, :, :, 0][seg[:, :, :, 0] == l].mean()
+        for t in range(T):
+            max_intensity_t = np.max(image[:, :, :, t][seg[:, :, :, t] == l])
+            if max_intensity_t / mean_intensity_ED >= 3:
+                print(f"The image becomes very noisy at time frame {t}.")
+                return False
+
+        for t in range(T):
+            if count_significant_cc(seg[:, :, :, t] == l, 10, 2) >= 2:
+                print(f"The segmentation has at least two connected "
+                      f"components with more than 10 pixels at time frame {t}.")
+                return False
+
+        A = np.sum(seg == l, axis=(0, 1, 2))
+        for t in range(T):
+            ratio = A[t] / float(A[t - 1])
+            if ratio >= 2 or ratio <= 0.5:
+                print(f"There is abrupt change of area at time frame {t}.")
+                return False
+
+        if np.max(A) / np.min(A) >= 2:
+            print("There is large change of area between maximum and "
+                  "minimum areas.")
+            return False
     return True
