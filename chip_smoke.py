@@ -53,7 +53,24 @@
    ConvLSTM's device spans (CUDA events), the ConvLSTM's device
    operations and busy share under torch.profiler, and the card's labels
    and area row against the port's CPU path on a cine cut to 10 frames;
-7. prints the card's name and power limit, one JSON line of kernel
+7. training: writes 8 phantom subjects' ED/ES pairs (192, 208, 10) with
+   labels and 2 for validation, and runs ``cli.train_network.main`` on
+   the card at the released FCN_sa architecture (5 levels, filters
+   16-256, 4 classes, 192^2 crops) in the production profile (batches of
+   128 slices, 10 steps per call, bf16, the device slice pool, 100
+   iterations) and the reference profile (batches of 2 subjects, float32,
+   host augmentation, 40 iterations); prints ms per step, slices/s, peak
+   memory, the loop's wait on the loader, TFLOP/s from ``conv_flops`` x 3,
+   the losses by validation and the head kernel's launches in the
+   validations; fails unless both losses are finite and fall; holds one
+   float32 step's gradients on the card to the CPU's; profiles one
+   production step (device time by kernel family); deploys the trained
+   bundle on the card through the head kernel;
+8. a ResNet-FCN bundle at the FCN_sa widths from a seeded init, written
+   by the port: card logits against the CPU's, its forward time per
+   chunk, and ``segment_sequence_fused`` on the card through the head
+   kernel;
+9. prints the card's name and power limit, one JSON line of kernel
    figures (launches from the 1-worker cohort run), and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -69,6 +86,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -127,6 +145,19 @@ AO_BUNDLE = os.path.join(WEIGHTS, "UNet-LSTM_ao.npz")
 AO_SHAPE = (240, 196, 1, 100)
 AFFINE_AO = np.diag([-1.8, -1.8, 10.0, 1.0])
 AREA_RTOL = 1e-6
+# the training phase: the released FCN_sa architecture (5 levels, filters
+# 16-256, 4 classes) on 192^2 crops of phantom ED/ES pairs; each
+# profile's iterations (production: batches of 128 slices, 10 steps per
+# call; reference: batches of 2 subjects); one float32 step's card and
+# CPU gradients within GRAD_RTOL of each tensor's largest magnitude
+TRAIN_SUBJECTS, VAL_SUBJECTS = 8, 2
+TRAIN_SHAPE = (192, 208, 10)
+TRAIN_CROP, TRAIN_BATCH = 192, 128    # the CLI's defaults
+TRAIN_ITERS = {"production": 100, "reference": 40}
+GRAD_BATCH, GRAD_RTOL = 8, 1e-3
+# ResNet-FCN deploy: card logits within RESNET_RTOL of the largest CPU
+# logit (the head kernel's 3xTF32 and cuDNN sum in another order)
+RESNET_RTOL = 1e-4
 PULSE_PRESSURE = "Central pulse pressure during PWA"
 COHORT_STAGES = ("segment", "volumes", "wall_thickness", "strain",
                  "segment_la", "atrial_volumes", "strain_la", "aortic")
@@ -401,7 +432,7 @@ def dice(a, b, label):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/7] build", flush=True)
+    print("[1/9] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -488,7 +519,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/7] fused head vs its plain version at the main path's shapes",
+    print("[2/9] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -532,7 +563,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/7] fused head with the LA bundles vs its plain version at "
+    print(f"[2/9] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -591,7 +622,7 @@ def bspline_phase(card, tb, bf):
     the strain path; times at the finest level go into the kernels line."""
     import torch.nn.functional as F
 
-    print("[2/7] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/9] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
     rng = np.random.RandomState(11)
     result = {}
@@ -667,7 +698,7 @@ def bspline_phase(card, tb, bf):
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/7] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/9] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -755,7 +786,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/7] main path: wall thickness + SA strain "
+    print(f"[4/9] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -962,7 +993,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/7] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/9] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1200,7 +1231,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/7] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/9] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1309,6 +1340,307 @@ def aortic_phase(card, work, truth):
         raise AssertionError(f"aortic rows differ: {rows}")
 
 
+def write_training_set(root, nifti):
+    """Phantom ED/ES training and validation pairs (the SA cine geometry
+    of :func:`sax_phantom` at TRAIN_SHAPE, LV radius and wall varied per
+    subject): ``{train,validation}/<id>/{sa,label_sa}_{ED,ES}.nii.gz``."""
+    X, Y, Z = TRAIN_SHAPE
+    affine = np.diag([-1.8, -1.8, 10.0, 1.0])
+    for i in range(TRAIN_SUBJECTS + VAL_SUBJECTS):
+        rng = np.random.RandomState(100 + i)
+        subset = "train" if i < TRAIN_SUBJECTS else "validation"
+        d = os.path.join(root, subset, f"{3000000 + i}")
+        os.makedirs(d)
+        # T = 2: frame 0 is ED, frame 1 the most contracted (ES)
+        image, seg = sax_phantom(X, Y, Z, 2, r_lv=0.08 * X + 2 * (i % 4),
+                                 wall=0.03 * X + (i % 3), rng=rng)
+        for fr, t in (("ED", 0), ("ES", 1)):
+            save_nifti(nifti, os.path.join(d, f"sa_{fr}.nii.gz"),
+                       image[..., t], affine)
+            save_nifti(nifti, os.path.join(d, f"label_sa_{fr}.nii.gz"),
+                       seg[..., t], affine)
+
+
+def train_phase(card, work, fh):
+    """FCN training on the card through ``cli.train_network.main`` in both
+    profiles, at the released FCN_sa architecture; then one float32 step
+    card vs CPU, and the written bundle deployed through the head
+    kernel and held to the port's CPU deploy of it.  Returns the head's
+    launches in the phase."""
+    from ukbb_cardiac_tpu_torch.cli import train_network
+    from ukbb_cardiac_tpu_torch.infer import deploy
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    print(f"[7/9] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+          f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
+          flush=True)
+    data = os.path.join(work, "train_set")
+    write_training_set(data, nifti)
+    fh.fused_head.launches = 0
+    bundles = {}
+    for profile, extra in (
+            ("production", ["--pool_gb", "1.0"]),
+            ("reference", [])):
+        torch.cuda.reset_peak_memory_stats()
+        ckpt = os.path.join(work, f"ckpt_{profile}")
+        t0 = time.perf_counter()
+        net, names, mcfg, stats = train_network.main(
+            ["--dataset_dir", data, "--profile", profile, "--checkpoint_dir",
+             ckpt, "--train_iteration", str(TRAIN_ITERS[profile]),
+             "--device", "cuda", "--seed", "0", *extra])
+        wall = time.perf_counter() - t0
+        (model_dir,) = os.listdir(ckpt)
+        model_dir = os.path.join(ckpt, model_dir)
+        with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        bundles[profile] = os.path.join(
+            model_dir, f"model-{TRAIN_ITERS[profile]}.npz")
+        losses = [r["loss"] for r in log]
+        prod = profile == "production"
+        steps = stats["steady_iterations"]
+        ms = 1e3 * stats["steady_s"] / max(steps, 1)
+        # slices per step: fixed in production; the reference's batches
+        # of 2 subjects hold 2 x Z slices
+        slices = TRAIN_BATCH if prod else 2 * TRAIN_SHAPE[2]
+        x = torch.zeros((slices, 1, TRAIN_CROP, TRAIN_CROP), device="cuda",
+                        dtype=torch.bfloat16 if prod else torch.float32)
+        with torch.no_grad():
+            flop = 3 * conv_flops(net, lambda: net(x, fused_head=False))
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {profile}: {stats['iterations']} iterations in {wall:.2f} "
+              f"s; steady {steps} steps at {ms:.4f} ms/step, "
+              f"{1e3 * slices / ms:.1f} slices/s, waited on the loader "
+              f"{stats['wait_s']:.4f} s of {stats['steady_s']:.4f} s; "
+              f"max allocated {mem:.3f} GiB; {flop / 1e12:.4f} TFLOP per step "
+              f"(conv_flops x 3, concat head) at "
+              f"{flop / ms / 1e9:.2f} TFLOP/s [{card}]")
+        print(f"  {profile}: loss by validation "
+              + ", ".join(f"{r['iteration']}: {r['loss']:.4f}" for r in log)
+              + f"; last val Dice LV/Myo/RV "
+              + "/".join(f"{log[-1][f'val_dice_{k}']:.3f}" for k in (1, 2, 3)))
+        if not (all(math.isfinite(v) for v in losses) and len(losses) >= 2
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{profile}: loss not finite or not "
+                                 f"falling: {losses}")
+    head_launches = fh.fused_head.launches
+    print(f"  fused_head launches in the two trainings' validations: "
+          f"{head_launches}")
+
+    # one float32 step from the same weights and batch, card vs CPU
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+
+    kind, mcfg, names, params, state = store.load_model(
+        bundles["production"])
+    images, labels = tsa.get_random_batch(
+        tsa.scan_dataset(data, "sa")["train"], 1, image_size=TRAIN_CROP,
+        rng=random.Random(0))
+    batch = {"image": torch.from_numpy(images[:GRAD_BATCH]),
+             "label": torch.from_numpy(labels[:GRAD_BATCH])}
+    grads, loss = {}, {}
+    for d in ("cpu", "cuda"):
+        net = convert.fcn_from_jax(params, state, names, mcfg).to(d)
+        loss_fn = tsa.make_fcn_loss(net, mcfg)
+        value, _ = loss_fn({k: v.to(d) for k, v in batch.items()}, 1)
+        value.backward()
+        loss[d] = float(value.detach())
+        grads[d] = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    worst = max(float((grads["cuda"][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in grads["cpu"].items())
+    print(f"  one f32 step on {tuple(batch['image'].shape)}: loss card "
+          f"{loss['cuda']:.6f}, CPU {loss['cpu']:.6f}; gradients differ by at "
+          f"most {worst:.3e} of a tensor's largest (bound {GRAD_RTOL})")
+    if (worst > GRAD_RTOL
+            or abs(loss["cuda"] - loss["cpu"]) > 1e-4 * loss["cpu"]):
+        raise AssertionError(f"card and CPU gradients differ: {worst}")
+
+    # what the production run learned, seen with batch statistics: after
+    # N iterations the moving statistics still hold 0.99^N of their
+    # initial values (0.37 at N = 100), which the inference forward uses
+    from ukbb_cardiac_tpu_torch.models import fcn as tfcn
+
+    v_img, v_lab = tsa.get_random_batch(
+        tsa.scan_dataset(data, "sa")["validation"], 2,
+        image_size=TRAIN_CROP, rng=random.Random(2))
+    with torch.no_grad():
+        pred = tfcn.apply_fcn(net, torch.from_numpy(v_img).cuda(),
+                              train=True).argmax(-1).cpu().numpy()
+    d = [dice(pred, v_lab, k) for k in (1, 2, 3)]
+    print(f"  production net on the validation pairs, batch-statistics "
+          f"forward: Dice LV/Myo/RV {d[0]:.4f}/{d[1]:.4f}/{d[2]:.4f} "
+          f"(moving statistics at 0.99^{TRAIN_ITERS['production']} = "
+          f"{0.99 ** TRAIN_ITERS['production']:.2f} of their initial "
+          f"values)")
+    step_profile(card, params, state, names, mcfg, data)
+
+    # the trained bundle deploys through the head kernel, which folds its
+    # trained BN statistics; the port's CPU deploy of it is the yardstick
+    root = os.path.join(work, "train_deploy")
+    cine, truth = sax_phantom(*TRAIN_SHAPE, 10, r_lv=0.1 * 192,
+                              wall=0.039 * 192,
+                              rng=np.random.RandomState(7))
+    for d in ("cuda", "cpu"):
+        sub = os.path.join(root, d, "3100000")
+        os.makedirs(sub)
+        save_nifti(nifti, os.path.join(sub, "sa.nii.gz"), cine, AFFINE_SA)
+    fh.fused_head.launches = 0
+    deploy.deploy_dataset(bundles["production"], os.path.join(root, "cuda"),
+                          seq_name="sa", device="cuda")
+    deploy_launches = fh.fused_head.launches
+    deploy.deploy_dataset(bundles["production"], os.path.join(root, "cpu"),
+                          seq_name="sa", device="cpu")
+    seg, seg_cpu = (np.asarray(nifti.load(os.path.join(
+        root, d, "3100000", "seg_sa.nii.gz")).dataobj)
+        for d in ("cuda", "cpu"))
+    agree = float((seg == seg_cpu).mean())
+    d = [dice(seg, truth, k) for k in (1, 2, 3)]
+    print(f"  trained bundle deployed on {cine.shape}: fused_head launches "
+          f"{deploy_launches}, card vs CPU label agreement {agree:.6f}, "
+          f"Dice LV/Myo/RV {d[0]:.4f}/{d[1]:.4f}/{d[2]:.4f} after "
+          f"{TRAIN_ITERS['production']} iterations")
+    x = cine.transpose(3, 2, 0, 1).reshape(-1, *TRAIN_SHAPE[:2], 1)[:16]
+    x = torch.from_numpy((x / 1000.0).astype(np.float32))
+    logits = {d: deploy.load_segmentation_model(bundles["production"], d)
+              .forward(x.to(d)).cpu() for d in ("cpu", "cuda")}
+    scale = float(logits["cpu"].abs().max())
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"  trained bundle, {tuple(x.shape)} slices: card vs CPU logits "
+          f"max abs err {err:.3e} of a largest {scale:.3e} (bound "
+          f"{RESNET_RTOL} of it)")
+    if (seg.shape != cine.shape or deploy_launches <= 0 or agree < 0.999
+            or not math.isfinite(scale) or err > RESNET_RTOL * scale):
+        raise AssertionError(f"trained bundle deploy: seg {seg.shape}, "
+                             f"launches {deploy_launches}, agreement "
+                             f"{agree}, logits err {err}")
+    return head_launches + deploy_launches
+
+
+def step_profile(card, params, state, names, mcfg, data):
+    """One production step (128 slices, bf16, device augmentation) timed
+    with CUDA events, its augmentation alone, and three steps under
+    torch.profiler: device time by kernel family and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ukbb_cardiac_tpu_torch.ckpt import convert
+    from ukbb_cardiac_tpu_torch.ops.augment import data_augmenter_torch
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps
+
+    net = convert.fcn_from_jax(params, state, names, mcfg).to(
+        "cuda", memory_format=torch.channels_last)  # as the trainer has it
+    images, labels = tsa.get_random_batch(
+        tsa.scan_dataset(data, "sa")["train"], 13, image_size=TRAIN_CROP,
+        rng=random.Random(1))
+    batch = {"image": torch.from_numpy(images[:TRAIN_BATCH]).half().cuda(),
+             "label": torch.from_numpy(labels[:TRAIN_BATCH]).to(
+                 torch.uint8).cuda()}
+    loss_fn = tsa.make_fcn_loss(net, mcfg, device_augment=True,
+                                compute_dtype=torch.bfloat16)
+    step = steps.make_train_step(loss_fn, torch.optim.Adam(
+        net.parameters(), lr=1e-4))
+    seeds = iter(range(1, 1000))
+    ms = cuda_ms(lambda: step(batch, next(seeds)), iters=5, warmup=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img = batch["image"].float()
+    aug_ms = cuda_ms(lambda: data_augmenter_torch(
+        gen, img, batch["label"], 0, 10, 0.2, 0, False), iters=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(batch, next(seeds))
+        torch.cuda.synchronize()
+    span = 1e3 * (time.perf_counter() - t0) / 3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 3e3
+    # first match wins: cuDNN's BatchNorm kernels before its convolutions
+    families = {"batch norm": ("batch_norm", "batchnorm", "cudnn::bn_"),
+                "convolution (cuDNN)": ("conv", "xmma", "cudnn", "fprop",
+                                        "dgrad", "wgrad", "implicit",
+                                        "nchwtonhwc", "nhwctonchw"),
+                "matmul (cuBLAS)": ("gemm", "cutlass"),
+                "gather / index": ("index_kernel", "gather", "scatter"),
+                "reduction": ("reduce_kernel",),
+                "elementwise": ("elementwise",)}
+    by = dict.fromkeys(list(families) + ["other"], 0.0)
+    for e in kern:
+        name = e.key.lower()
+        fam = next((f for f, keys in families.items()
+                    if any(k in name for k in keys)), "other")
+        by[fam] += e.self_device_time_total / 3e3
+    print(f"  production step alone (128 x {TRAIN_CROP}^2, bf16, device "
+          f"augmentation): {ms:.4f} ms (CUDA events), of which the "
+          f"augmentation alone {aug_ms:.4f} ms [{card}]")
+    if busy > 0:
+        n_ops = sum(e.count for e in kern) / 3
+        print(f"  under torch.profiler, per step: {n_ops:.0f} device ops, "
+              f"busy {busy:.4f} ms of a {span:.4f} ms host span; "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in by.items()))
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        for e in top:
+            print(f"    {e.self_device_time_total / 3e3:9.4f} ms  "
+                  f"{e.count / 3:5.0f}x  {e.key[:90]}")
+    else:
+        print("  under torch.profiler: no device time recorded (busy share "
+              "not measured)")
+
+
+def resnet_phase(card, work, fh):
+    """A ResNet-FCN bundle at the released widths from a seeded init,
+    written by the port, deployed on the card and on the CPU: logits and
+    labels compared, the head kernel's launches counted."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.infer import deploy
+    from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
+    from ukbb_cardiac_tpu_torch.models import fcn as tfcn
+
+    print("[8/9] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+          flush=True)
+    cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
+                            n_filter=(16, 32, 64, 128, 256),
+                            n_block=(2, 2, 3, 3, 3))
+    net = tfcn.init_weights(tfcn.ResNetFCN(cfg),
+                            torch.Generator().manual_seed(0))
+    names = convert.fcn_names(cfg)
+    params, state = convert.fcn_to_jax(net, names)
+    path = os.path.join(work, "ResNet_sa.npz")
+    store.save_model(path, "resnet", cfg, names, params, state)
+    cine, _ = sax_phantom(*MAIN_SHAPE[:3], 4, r_lv=0.1 * 192,
+                          wall=0.039 * 192, rng=np.random.RandomState(9))
+    x = cine.transpose(3, 2, 0, 1).reshape(-1, *MAIN_SHAPE[:2], 1)
+    x = torch.from_numpy((x / 1000.0).astype(np.float32))
+    models = {d: deploy.load_segmentation_model(path, d)
+              for d in ("cpu", "cuda")}
+    logits = {d: m.forward(x.to(d)).cpu() for d, m in models.items()}
+    scale = float(logits["cpu"].abs().max())
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    agree = float((logits["cuda"].argmax(1) == logits["cpu"].argmax(1))
+                  .float().mean())
+    print(f"  {tuple(x.shape)} slices: card vs CPU logits max abs err "
+          f"{err:.3e} of a largest {scale:.3e} (bound {RESNET_RTOL} of it), "
+          f"argmax agreement {agree:.6f}")
+    if not (math.isfinite(scale) and err <= RESNET_RTOL * scale
+            and agree >= 0.999):
+        raise AssertionError(f"ResNet card vs CPU: err {err}, agree {agree}")
+    chunk = x[:CHUNK].cuda()
+    ms = cuda_ms(lambda: models["cuda"].forward(chunk), iters=10)
+    print(f"  ResNet-FCN forward + head kernel, {tuple(chunk.shape)}: "
+          f"{ms:.4f} ms per chunk [{card}]")
+    fh.fused_head.launches = 0
+    seg = InferenceEngine(models["cuda"]).segment_sequence_fused(cine)
+    launches = fh.fused_head.launches
+    print(f"  segment_sequence_fused on {cine.shape}: fused_head launches "
+          f"{launches}, labels {sorted(np.unique(seg).tolist())}")
+    if seg.shape != cine.shape or launches <= 0:
+        raise AssertionError(f"ResNet deploy: seg {seg.shape}, launches "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1350,9 +1682,13 @@ def main() -> int:
         # user runs by default, through every kernel
         launches, truth = cohort_phase(card, work)
         aortic_phase(card, work, truth)
+        train_launches = train_phase(card, work, fh)
+        resnet_launches = resnet_phase(card, work, fh)
+        print(f"  fused_head launches: training phase {train_launches}, "
+              f"ResNet phase {resnet_launches}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[7/7] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[9/9] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",

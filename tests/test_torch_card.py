@@ -319,3 +319,66 @@ def test_aortic_engine_on_card_matches_cpu(card, tmp_path):
     assert segs["cpu"].shape == image.shape and segs["cpu"].max() == 2
     assert (segs["cpu"] == segs["cuda"]).mean() >= 0.999
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(card):
+    """One float32 training step from the same weights and batch on the
+    card and on the CPU.  A random net's weight gradients sum terms that
+    cancel, so float32 summation order alone moves them by about 1e-3 of
+    a tensor's largest value (on the CPU, contiguous against
+    channels-last: 1.5e-3).  The card must differ from the CPU by at most
+    4x that spread of the CPU against itself (worst tensor, relative to
+    its largest value), and the loss by 1e-5 relative."""
+    from ukbb_cardiac_tpu_torch.train.sa import make_fcn_loss
+
+    net = _random_fcn(n_level=3)
+    rng = np.random.RandomState(0)
+    xx, yy = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    r = rng.uniform(8, 20, (8, 1, 1))
+    disk = ((xx - 32) ** 2 + (yy - 30) ** 2 < r ** 2).astype(np.uint8)
+    image = 0.8 * disk + 0.05 * rng.randn(8, 64, 64)
+    batch = {"image": torch.from_numpy(image[..., None].astype(np.float32)),
+             "label": torch.from_numpy(disk)}
+    grads, losses = {}, {}
+    for name, dev, fmt in (("cpu", "cpu", torch.contiguous_format),
+                           ("cpu_nhwc", "cpu", torch.channels_last),
+                           ("cuda", card, torch.contiguous_format)):
+        model = tfcn.FCN(net.cfg).to(dev, memory_format=fmt)
+        model.load_state_dict(net.state_dict())
+        loss, _ = make_fcn_loss(model, net.cfg)(
+            {k: v.to(dev) for k, v in batch.items()}, 1)
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+    def worst(a):
+        return max(float((grads[a][k] - g).abs().max() / g.abs().max())
+                   for k, g in grads["cpu"].items())
+
+    assert abs(losses["cpu"] - losses["cuda"]) <= 1e-5 * losses["cpu"]
+    spread = worst("cpu_nhwc")
+    assert 0 < spread < 1e-2
+    assert worst("cuda") <= 4 * spread
+
+
+@pytest.mark.cuda
+def test_pool_upload_is_ordered_after_queued_gathers(card):
+    """A slot re-uploaded right after a queued gather reads it: the gather
+    sees the old volume (the upload is on the step's stream)."""
+    from ukbb_cardiac_tpu_torch.train.device_pool import (DeviceCinePool,
+                                                          _gather_slices)
+
+    pool = DeviceCinePool(1, 2, 256, 256, card)
+    ones = np.ones((2, 256, 256), np.float32)
+    pool.ensure("a", lambda: (ones, ones.astype(np.uint8)))
+    img, lab = pool.snapshot()
+    idx = {"slot": torch.zeros(64, dtype=torch.int32, device=card),
+           "zidx": torch.ones(64, dtype=torch.int32, device=card)}
+    torch.cuda._sleep(50_000_000)  # keep the stream busy
+    got = _gather_slices(img.reshape(-1, 256, 256), lab.reshape(-1, 256, 256),
+                         idx, 2)
+    pool.ensure("b", lambda: (2 * ones, 2 * ones.astype(np.uint8)))
+    assert float(got["image"].float().min()) == 1.0
+    assert int(got["label"].min()) == 1
+    assert float(pool.snapshot()[0].float().min()) == 2.0

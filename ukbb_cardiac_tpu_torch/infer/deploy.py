@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ukbb_cardiac_tpu_torch import resolve_device
-from ukbb_cardiac_tpu_torch.ckpt.convert import fcn_from_jax
+from ukbb_cardiac_tpu_torch.ckpt.convert import fcn_from_jax, resnet_from_jax
 from ukbb_cardiac_tpu_torch.ckpt.store import load_model
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  SegmentationModel)
@@ -33,15 +33,19 @@ from ukbb_cardiac_tpu_torch.ops.intensity import rescale_intensity
 
 def load_segmentation_model(model_path: str, device=None,
                             compute_dtype=None) -> SegmentationModel:
-    """Load a model bundle (.npz) onto ``device`` (default ``cuda``)."""
+    """Load an FCN or ResNet-FCN bundle (.npz) onto ``device`` (default
+    ``cuda``)."""
     device = resolve_device(device)
     kind, cfg, names, params, state = load_model(model_path)
-    if kind != "fcn":
-        raise ValueError(f"model kind {kind!r} is not ported yet; the port "
-                         f"deploys FCN bundles")
-    net = fcn_from_jax(params, state, names, cfg)
-    return SegmentationModel.from_fcn(net, device,
-                                      compute_dtype or torch.float32)
+    dtype = compute_dtype or torch.float32
+    if kind == "fcn":
+        return SegmentationModel.from_fcn(
+            fcn_from_jax(params, state, names, cfg), device, dtype)
+    if kind == "resnet":
+        return SegmentationModel.from_resnet(
+            resnet_from_jax(params, state, names, cfg), device, dtype)
+    raise ValueError(f"model kind {kind!r} is not an SA/LA segmenter; the "
+                     "deploy takes 'fcn' and 'resnet' bundles")
 
 
 def seg_prefix(seq_name: str, seg4: bool) -> str:

@@ -193,8 +193,9 @@ class HeadWeights:
 
 
 def fold_head(net: FCN) -> HeadWeights:
-    """Fold every BN of the FCN's head into its 1x1 conv (float32, on the
-    net's device)."""
+    """Fold every BN of the head of an FCN or a ResNet-FCN (they share it)
+    into its 1x1 conv (float32, on the net's device).  The result holds
+    the weights as they are now: after a training update, fold again."""
     Wsd, bsd = [], []
     for unit in net.same_dim:
         W, b = fold_conv_bn(unit.weight, unit.gamma, unit.beta,
@@ -318,11 +319,14 @@ fused_head.launches_by_class = {}
 
 def apply_fcn_fused(net: FCN, image: torch.Tensor, head: HeadWeights = None,
                     compute_dtype=torch.float32) -> torch.Tensor:
-    """FCN forward: encoder (``F.conv2d``) + fused head.  ``image`` is
+    """FCN / ResNet-FCN forward: encoder (``F.conv2d``) + fused head.  ``image`` is
     (N, X, Y, C); returns channels-first logits (N, n_class, X, Y)
     float32 — take ``argmax(dim=1)`` for predictions.  Counterpart of
     ``apply_fcn_pallas``."""
     if head is None:
         head = fold_head(net)
-    return fused_head(net.encode(nchw(image, compute_dtype)), head)
+    # a channels-last net (the trainer's) gives channels-last features;
+    # the kernel reads contiguous NCHW (a no-op for a deployed net)
+    feats = [f.contiguous() for f in net.encode(nchw(image, compute_dtype))]
+    return fused_head(feats, head)
 

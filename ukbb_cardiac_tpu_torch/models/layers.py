@@ -1,5 +1,6 @@
-"""Network building blocks: TF-SAME conv, eval BatchNorm, fixed bilinear
-upsampling.
+"""Network building blocks: TF-SAME conv, BatchNorm (inference and
+training), the pre-activation residual unit, fixed bilinear upsampling,
+Glorot-uniform initialisation.
 
 Counterpart of ``ukbb_cardiac_tpu/models/layers.py``.  Activations are
 NCHW and kernels OIHW (PyTorch's habit); the arithmetic follows the JAX
@@ -9,7 +10,14 @@ package's TF semantics:
   to the bottom/right.  ``F.conv2d(padding='same')`` rejects stride 2, so
   the padding is applied with ``F.pad``.
 - ``tf.layers.batch_normalization``: epsilon 1e-3, normalised in float32
-  as ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``.
+  as ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``.  In training the
+  batch statistics normalise (float32, *biased* variance) and the moving
+  statistics update as ``m * 0.99 + batch * 0.01``.
+  ``F.batch_norm(training=True)`` would update the moving variance with
+  the unbiased estimator and the opposite momentum convention, so the
+  update is written out here; ``F.batch_norm`` only normalises (one
+  fused pass forward and backward instead of about ten elementwise
+  ones), and hands the batch statistics over in scratch buffers.
 - ``tf.nn.conv2d_transpose`` / ``conv3d_transpose`` ('SAME'): the bundles
   store these kernels already flipped, in correlation orientation, for an
   input-dilated convolution.  Here they run as ``F.conv_transpose2d`` /
@@ -23,6 +31,7 @@ package's TF semantics:
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -30,6 +39,20 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPSILON = 1e-3  # tf.layers.batch_normalization default
+BN_MOMENTUM = 0.99
+
+
+def glorot_uniform_(weight: torch.Tensor,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """Glorot/Xavier uniform in place on an OIHW / OIDHW kernel, drawn
+    from ``generator`` (``layers.glorot_uniform``: fan_in = I x receptive
+    field, fan_out = O x receptive field, limit sqrt(6 / (in + out)))."""
+    receptive = weight[0, 0].numel()
+    fan_in = weight.shape[1] * receptive
+    fan_out = weight.shape[0] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return weight.uniform_(-limit, limit, generator=generator)
 
 
 def _same_pad(n: int, k: int, s: int):
@@ -108,9 +131,31 @@ def conv3d_transpose(x: torch.Tensor, weight: torch.Tensor,
 
 
 def batch_norm(x: torch.Tensor, gamma, beta, moving_mean,
-               moving_variance) -> torch.Tensor:
-    """Inference-mode BatchNorm over the channel axis (dim 1) of a 4D or
-    5D input, computed in float32 and cast back to the input dtype."""
+               moving_variance, train: bool = False) -> torch.Tensor:
+    """BatchNorm over the channel axis (dim 1) of a 4D or 5D input,
+    computed in float32 and cast back to the input dtype.
+
+    Inference normalises with the moving statistics.  ``train``
+    normalises with the batch's (float32, biased variance; gradients flow
+    through both) and updates ``moving_mean`` / ``moving_variance`` in
+    place, as ``layers.batch_norm``'s ``new_state``:
+    ``m * 0.99 + batch * 0.01``.
+
+    In training ``F.batch_norm`` normalises (float32 statistics for a
+    bfloat16 input too) and, at momentum 1, leaves the batch mean and
+    the *unbiased* variance in two scratch buffers; the update below
+    takes the biased variance, ``unbiased * (n - 1) / n``."""
+    if train:
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(moving_mean)
+        var = torch.ones_like(moving_variance)
+        y = F.batch_norm(x, mean, var, gamma, beta, True, 1.0, BN_EPSILON)
+        with torch.no_grad():
+            moving_mean.copy_(moving_mean * BN_MOMENTUM
+                              + mean * (1 - BN_MOMENTUM))
+            moving_variance.copy_(moving_variance * BN_MOMENTUM
+                                  + var * ((n - 1) / n) * (1 - BN_MOMENTUM))
+        return y
     shape = (1, -1) + (1,) * (x.dim() - 2)
     inv = torch.rsqrt(moving_variance + BN_EPSILON) * gamma
     y = ((x.float() - moving_mean.view(shape)) * inv.view(shape)
@@ -137,9 +182,9 @@ class ConvBN(nn.Module):
         self.register_buffer("moving_mean", torch.zeros(out_ch))
         self.register_buffer("moving_variance", torch.ones(out_ch))
 
-    def bn(self, x: torch.Tensor) -> torch.Tensor:
+    def bn(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return batch_norm(x, self.gamma, self.beta, self.moving_mean,
-                          self.moving_variance)
+                          self.moving_variance, train)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         if self.dims == 2:
@@ -148,8 +193,58 @@ class ConvBN(nn.Module):
             fn = conv3d_transpose if self.transpose else conv3d
         return fn(x, self.weight, self.stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x), train))
+
+
+class BN(nn.Module):
+    """A BatchNorm's parameters and moving statistics, for the residual
+    unit's pre-activations."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(ch))
+        self.beta = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("moving_mean", torch.zeros(ch))
+        self.register_buffer("moving_variance", torch.ones(ch))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return batch_norm(x, self.gamma, self.beta, self.moving_mean,
+                          self.moving_variance, train)
+
+
+class ResidualUnit(nn.Module):
+    """Pre-activation residual unit (``network.py:55-114``,
+    ``layers.residual_unit``): BN -> ReLU -> conv, twice (plain: 3x3, 3x3)
+    or three times (bottleneck: 1x1 to out/4, 3x3, 1x1 to out); the first
+    conv carries the stride; a strided 1x1 conv makes the shortcut when
+    the width or the stride changes.  The output keeps the input dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 bottleneck: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.bottleneck = bottleneck
+        if bottleneck:
+            mid = out_ch // 4
+            spec = [(in_ch, mid, 1), (mid, mid, 3), (mid, out_ch, 1)]
+        else:
+            spec = [(in_ch, out_ch, 3), (out_ch, out_ch, 3)]
+        self.bns = nn.ModuleList([BN(cin) for cin, _, _ in spec])
+        self.convs = nn.ParameterList([
+            nn.Parameter(torch.zeros(cout, cin, k, k))
+            for cin, cout, k in spec])
+        self.shortcut = (nn.Parameter(torch.zeros(out_ch, in_ch, 1, 1))
+                         if in_ch != out_ch or stride != 1 else None)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        orig, dtype = x, x.dtype
+        for i, (bn, w) in enumerate(zip(self.bns, self.convs)):
+            x = torch.relu(bn(x, train)).to(dtype)
+            x = conv2d(x, w, self.stride if i == 0 else 1)
+        short = (conv2d(orig, self.shortcut, self.stride)
+                 if self.shortcut is not None else orig)
+        return (short + x).to(dtype)
 
 
 def linear_1d(sz: int) -> np.ndarray:

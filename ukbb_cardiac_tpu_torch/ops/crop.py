@@ -1,12 +1,31 @@
-"""Deploy padding arithmetic (``common/deploy_network.py:97-100``, the
-aortic deploy's fixed grid) and the foreground bounding box of
-``auto_crop_image``."""
+"""Centred crop (``common/image_utils.py:35-57``), deploy padding
+arithmetic (``common/deploy_network.py:97-100``, the aortic deploy's
+fixed grid) and the foreground bounding box of ``auto_crop_image``."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+
+def crop_image(image, cx, cy, size):
+    """Crop a 3D/4D image with a centred box of `size`, zero-padding
+    overflow, with the reference's even-size arithmetic (r = size//2; the
+    box is [c-r, c+r), so the output side is 2*r)."""
+    image = np.asarray(image)
+    X, Y = image.shape[:2]
+    r = int(size / 2)
+    x1, x2 = cx - r, cx + r
+    y1, y2 = cy - r, cy + r
+    x1_, x2_ = max(x1, 0), min(x2, X)
+    y1_, y2_ = max(y1, 0), min(y2, Y)
+    crop = image[x1_:x2_, y1_:y2_]
+    pad = ([(x1_ - x1, x2 - x2_), (y1_ - y1, y2 - y2_)]
+           + [(0, 0)] * (image.ndim - 2))
+    if image.ndim not in (3, 4):
+        raise ValueError(f"unsupported dimension, ndim = {image.ndim}")
+    return np.pad(crop, pad, "constant")
 
 
 def pad_to_multiple(X: int, Y: int, multiple: int = 16):

@@ -1,0 +1,667 @@
+"""SA/LA FCN trainer — twin of ``common/train_network.py``, counterpart of
+``ukbb_cardiac_tpu/train/sa.py``.
+
+Reference semantics kept (file:line of ``train_network.py``):
+- dataset scan of ``{train,validation,test}/<eid>/<seq>_{ED,ES}.nii.gz``
+  + ``label_<seq>_{ED,ES}.nii.gz`` pairs (:125-138)
+- n_class by sequence: sa=4, la_2ch=2, la_4ch=3 (:157-167)
+- ``get_random_batch``: random subject pairs, centre crop to
+  ``image_size``, rescale (1,99), per-slice 2D stacking, optional
+  augmentation (:57-118); training uses rotate=10, scale=0.2 (:263)
+- FCN with n_filter=[16*2^i], n_block=[2,2,3,3,3], same_dim=32, fc=64
+  (:179-195); softmax CE loss (:204-206); Adam (:225)
+- validation every 10 iterations with per-class Dice (:276-308);
+  checkpoint every 1000 (:337-339); model-name encoding (:228-230)
+
+As in the JAX trainer: metrics go to ``train_log.jsonl``, checkpoints are
+model bundles (``ckpt/store.py``) that both packages read, and the
+production options — fixed-size slice batches, K steps per call, device
+augmentation, bf16 activations, compact transfer, a subject cache and a
+device-resident slice pool — keep the batches the reference would draw.
+
+On the card the validation forward is the deploy's
+(``SegmentationModel.forward``: cuDNN encoder and the fused head kernel);
+the head's folded, packed weights are rebuilt at every validation, since
+every update makes them stale.  Training over several cards is not
+ported (``mesh_devices > 1`` raises, ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ukbb_cardiac_tpu_torch import resolve_device
+from ukbb_cardiac_tpu_torch.ckpt import convert, store
+from ukbb_cardiac_tpu_torch.io import nifti
+from ukbb_cardiac_tpu_torch.models import fcn as fcn_mod
+from ukbb_cardiac_tpu_torch.models import losses
+from ukbb_cardiac_tpu_torch.ops.augment import (data_augmenter,
+                                                data_augmenter_torch)
+from ukbb_cardiac_tpu_torch.ops.crop import crop_image
+from ukbb_cardiac_tpu_torch.ops.intensity import rescale_intensity
+from ukbb_cardiac_tpu_torch.train import steps as steps_lib
+
+N_CLASS = {"sa": 4, "la_2ch": 2, "la_4ch": 3, "la_4ch_seg4": 6}
+
+# The production batch: 128 slices, a static shape.  With the
+# linear-scaling rule the matching learning rate is 1e-3 * 128 / 20 (the
+# CLI applies it when --learning_rate is not given); the trajectory
+# differs from the reference's batch of 2 subjects, for which
+# ``--profile reference`` stays.
+PRODUCTION_BATCH_SLICES = 128
+
+
+@dataclass
+class SATrainConfig:
+    seq_name: str = "sa"
+    image_size: int = 192
+    train_batch_size: int = 2
+    validation_batch_size: int = 2
+    train_iteration: int = 50000
+    num_filter: int = 16
+    num_level: int = 5
+    learning_rate: float = 1e-3
+    dataset_dir: str = ""
+    checkpoint_dir: str = ""
+    log_dir: str = ""
+    validation_every: int = 10
+    checkpoint_every: int = 1000
+    seed: int = 0
+    mesh_devices: int = 0  # >1 (several cards) is not ported
+    device_augment: bool = False  # augment on the device, in the step
+    # K optimizer steps per call (steps.make_multi_train_step); requires
+    # batch_slices (a static batch shape to stack)
+    steps_per_dispatch: int = 1
+    # >0: each batch is exactly this many 2D slices from a FIFO pool of
+    # subjects drawn one at a time; 0 keeps the reference's per-subject
+    # batches
+    batch_slices: int = 0
+    # bf16 activations; params, BN statistics, logits and loss float32
+    bf16: bool = False
+    # batches cross to the device as f16 images + uint8 labels
+    compact_transfer: bool = False
+    # train on device-resident slices (train/device_pool.py); requires
+    # batch_slices > 0 and device_augment.  Batches equal
+    # compact_transfer's.
+    device_slices: bool = False
+    # device memory budget for the slice pool, GiB
+    pool_gb: float = 2.0
+    # >0: LRU cache of decoded, cropped, rescaled subjects, GiB; outputs
+    # are identical to the uncached path
+    cache_gb: float = 0.0
+    # 'cuda' or 'cpu' (resolve_device: no silent fallback)
+    device: Optional[str] = None
+
+    @property
+    def n_class(self) -> int:
+        return N_CLASS[self.seq_name]
+
+    @property
+    def model_name(self) -> str:
+        n_block = "22333"
+        return (f"FCN_{self.seq_name}_level{self.num_level}_filter"
+                f"{self.num_filter}_{n_block}_batch{self.train_batch_size}_"
+                f"iter{self.train_iteration}_lr{self.learning_rate}")
+
+
+def scan_dataset(dataset_dir: str, seq_name: str):
+    """List (image, label) ED/ES file pairs per subset
+    (``train_network.py:125-138``)."""
+    data_list = {}
+    for k in ("train", "validation", "test"):
+        subset_dir = os.path.join(dataset_dir, k)
+        data_list[k] = []
+        if not os.path.isdir(subset_dir):
+            continue
+        for data in sorted(os.listdir(subset_dir)):
+            data_dir = os.path.join(subset_dir, data)
+            for fr in ("ED", "ES"):
+                image_name = os.path.join(data_dir, f"{seq_name}_{fr}.nii.gz")
+                label_name = os.path.join(data_dir,
+                                          f"label_{seq_name}_{fr}.nii.gz")
+                if os.path.exists(image_name) and os.path.exists(label_name):
+                    data_list[k].append((image_name, label_name))
+    return data_list
+
+
+class SubjectCache:
+    """Byte-budgeted LRU cache of decoded, cropped, rescaled subjects.
+
+    Keyed by (image path, label path, crop size, both files' mtimes) so a
+    rewritten file re-decodes.  Thread-safe: the prefetch worker and the
+    validation draws may touch it concurrently."""
+
+    def __init__(self, max_bytes: int):
+        import collections
+        import threading
+
+        self.max_bytes = int(max_bytes)
+        self._lock = threading.Lock()
+        self._data = collections.OrderedDict()
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key):
+        with self._lock:
+            value = self._data.get(key)
+            if value is not None:
+                self._data.move_to_end(key)
+                self.hits += 1
+            else:
+                self.misses += 1
+            return value
+
+    def put(self, key, value):
+        nbytes = sum(a.nbytes for a in value)
+        if nbytes > self.max_bytes:
+            return
+        with self._lock:
+            if key in self._data:
+                return
+            self._data[key] = value
+            self._bytes += nbytes
+            while self._bytes > self.max_bytes:
+                _, old = self._data.popitem(last=False)
+                self._bytes -= sum(a.nbytes for a in old)
+
+
+def _file_key(image_name, label_name, image_size):
+    return (image_name, label_name, image_size,
+            os.path.getmtime(image_name), os.path.getmtime(label_name))
+
+
+def _load_subject(image_name, label_name, image_size, key, cache):
+    """Decoded, centre-cropped, rescaled (image float32, label int32)
+    volumes, or None (with the reference's message) for a mismatched or
+    blank pair."""
+    cached = cache.get(key) if cache is not None else None
+    if cached is not None:
+        return cached
+    image = np.asarray(nifti.load(image_name).dataobj, dtype=np.float32)
+    label = np.asarray(nifti.load(label_name).dataobj)
+    if image.shape != label.shape:
+        print(f"Error: mismatched size, image.shape = {image.shape}, "
+              f"label.shape = {label.shape}")
+        print(f"Skip {image_name}, {label_name}")
+        return None
+    if image.max() < 1e-6:
+        print(f"Error: blank image, image.max = {image.max()}")
+        print(f"Skip {image_name} {label_name}")
+        return None
+    X, Y = image.shape[:2]
+    cx, cy = X // 2, Y // 2
+    image = crop_image(image, cx, cy, image_size)
+    label = crop_image(label, cx, cy, image_size)
+    image = rescale_intensity(image, (1.0, 99.0))
+    label = np.asarray(label, dtype=np.int32)
+    if cache is not None:
+        cache.put(key, (image, label))
+    return image, label
+
+
+def get_random_batch(filename_list, batch_size, image_size=192,
+                     data_augmentation=False, shift=0.0, rotate=0.0,
+                     scale=0.0, intensity=0.0, flip=False, rng=None,
+                     verbose=False, cache: Optional[SubjectCache] = None):
+    """Host batch sampler (``train_network.py:57-118``): random subject
+    volumes, centre crop, rescale, per-slice 2D stacking, optional host
+    augmentation.  ``cache`` skips the decode of subjects drawn before;
+    outputs are identical either way."""
+    rng = rng or random
+    n_file = len(filename_list)
+    images, labels = [], []
+    n_selected = 0
+    while n_selected < batch_size:
+        image_name, label_name = filename_list[rng.randrange(n_file)]
+        if not (os.path.exists(image_name) and os.path.exists(label_name)):
+            continue
+        if verbose:
+            print(f"  Select {image_name} {label_name}")
+        key = (_file_key(image_name, label_name, image_size)
+               if cache is not None else None)
+        got = _load_subject(image_name, label_name, image_size, key, cache)
+        if got is None:
+            continue
+        image, label = got
+        for z in range(image.shape[2]):
+            images.append(image[:, :, z])
+            labels.append(label[:, :, z])
+        n_selected += 1
+
+    images = np.asarray(images, dtype=np.float32)[..., None]
+    labels = np.asarray(labels, dtype=np.int32)
+    if data_augmentation:
+        # the augmentation RNG derives from the sampler's, so a fixed seed
+        # reproduces the whole batch stream
+        np_rng = (np.random.RandomState(rng.randrange(2 ** 31))
+                  if rng is not random else None)
+        images, labels = data_augmenter(images, labels, shift=shift,
+                                        rotate=rotate, scale=scale,
+                                        intensity=intensity, flip=flip,
+                                        rng=np_rng)
+    return images, labels
+
+
+def make_slice_pool_sampler(filename_list, batch_slices: int,
+                            image_size=192, data_augmentation=False,
+                            shift=0.0, rotate=0.0, scale=0.0, intensity=0.0,
+                            flip=False, rng=None,
+                            cache: Optional[SubjectCache] = None):
+    """Fixed-shape batch sampler: subjects drawn one at a time exactly as
+    :func:`get_random_batch` draws them, their slices pooled in FIFO
+    order, batches of exactly ``batch_slices`` slices popped off."""
+    buf_img: list = []
+    buf_lab: list = []
+
+    def next_batch():
+        while len(buf_img) < batch_slices:
+            images, labels = get_random_batch(
+                filename_list, 1, image_size=image_size,
+                data_augmentation=data_augmentation, shift=shift,
+                rotate=rotate, scale=scale, intensity=intensity, flip=flip,
+                rng=rng, cache=cache)
+            buf_img.extend(images)
+            buf_lab.extend(labels)
+        images = np.asarray(buf_img[:batch_slices], dtype=np.float32)
+        labels = np.asarray(buf_lab[:batch_slices], dtype=np.int32)
+        del buf_img[:batch_slices], buf_lab[:batch_slices]
+        return {"image": images, "label": labels}
+
+    return next_batch
+
+
+def make_device_slice_sampler(filename_list, batch_slices: int, pool,
+                              image_size=192, rng=None,
+                              cache: Optional[SubjectCache] = None):
+    """Index-batch sampler over a :class:`train.device_pool.DeviceCinePool`
+    whose slots hold subject-frame volumes as (Z, S, S) slice stacks.
+
+    Draws subjects with exactly :func:`make_slice_pool_sampler`'s
+    semantics (one ``randrange`` per subject, the same gates, slices FIFO
+    in z order) but makes the subject's volume device-resident and emits
+    {"slot": (B,), "zidx": (B,)} int32 batches.  Per-subject Z is memoised
+    by file key, so the steady state decodes nothing.  Every emitted slice
+    pins its slot; the consumer unpins each batch's slots once the step
+    gathering them has been enqueued."""
+    rng = rng or random
+    n_file = len(filename_list)
+    meta = {}  # key -> Z (0 = invalid subject)
+    buf: list = []
+
+    def draw():
+        image_name, label_name = filename_list[rng.randrange(n_file)]
+        if not (os.path.exists(image_name) and os.path.exists(label_name)):
+            return
+        key = _file_key(image_name, label_name, image_size)
+        z = meta.get(key)
+        first = None
+        if z is None:
+            # keep the decoded volume for the upload below: without a
+            # SubjectCache a miss would otherwise decode twice
+            first = _load_subject(image_name, label_name, image_size, key,
+                                  cache)
+            meta[key] = z = 0 if first is None else first[0].shape[2]
+        if z == 0:
+            return
+
+        def make_host(first=first):
+            got = first if first is not None else _load_subject(
+                image_name, label_name, image_size, key, cache)
+            if got is None:
+                raise RuntimeError(f"subject {image_name} failed to "
+                                   "re-load for pool upload")
+            image, label = got
+            return (np.transpose(image, (2, 0, 1)),
+                    np.transpose(label, (2, 0, 1)))
+
+        slot = pool.ensure(key, make_host)
+        for zi in range(z):
+            pool.pin(slot)
+            buf.append((slot, zi))
+
+    def next_batch():
+        while len(buf) < batch_slices:
+            draw()
+        take = buf[:batch_slices]
+        del buf[:batch_slices]
+        return {"slot": np.asarray([s for s, _ in take], np.int32),
+                "zidx": np.asarray([zi for _, zi in take], np.int32)}
+
+    return next_batch
+
+
+def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
+                  device_augment: bool = False, shift=0.0, rotate=10.0,
+                  scale=0.2, intensity=0.0, flip=False, compute_dtype=None):
+    """Loss closure for the train step: softmax CE + accuracy / Dice aux
+    (``train_network.py:204-214``).  ``loss_fn(batch, seed) -> (loss,
+    aux)``; the training forward updates the BN moving statistics.
+
+    ``device_augment``: the random affine augmentation runs on the device,
+    in the step, from a generator seeded with the step's ``seed``.
+    ``compute_dtype``: activation dtype (default float32); bfloat16 keeps
+    params, BN statistics, logits and the loss in float32."""
+    dtype = compute_dtype or torch.float32
+    generators = {}
+
+    def loss_fn(batch, seed: int):
+        # compact batches (f16 image / uint8 label) are cast here
+        image = batch["image"].float()
+        label = batch["label"].to(torch.int32)
+        if device_augment:
+            gen = generators.get(image.device)
+            if gen is None:
+                gen = generators[image.device] = torch.Generator(
+                    device=image.device)
+            gen.manual_seed(seed)
+            image, label = data_augmenter_torch(gen, image, label, shift,
+                                                rotate, scale, intensity,
+                                                flip)
+        logits = fcn_mod.apply_fcn(net, image, compute_dtype=dtype,
+                                   train=True)
+        loss = losses.softmax_cross_entropy(logits, label, cfg.n_class)
+        with torch.no_grad():
+            pred = torch.argmax(logits, dim=-1)
+            aux = {"accuracy": (pred == label).float().mean()}
+            for k in range(1, cfg.n_class):
+                a, b = pred == k, label == k
+                aux[f"dice_{k}"] = (2 * (a & b).sum() / torch.clamp(
+                    a.sum() + b.sum(), min=1e-7))
+        return loss, aux
+
+    return loss_fn
+
+
+def _pool_for(cfg: SATrainConfig, train_list, K: int, device):
+    """A :class:`DeviceCinePool` sized from a header-only scan of the
+    training volumes and ``cfg.pool_gb``."""
+    from ukbb_cardiac_tpu_torch.train.device_pool import DeviceCinePool
+
+    z_max = z_min = 0
+    for image_name, _label in train_list:
+        try:
+            shape = nifti.read_shape(image_name)
+        except Exception:
+            continue
+        if len(shape) >= 3 and shape[2] > 0:
+            z_max = max(z_max, int(shape[2]))
+            z_min = int(shape[2]) if z_min == 0 else min(z_min,
+                                                         int(shape[2]))
+    if z_max <= 0:
+        raise ValueError("device_slices: no readable 3D training volume")
+    s = cfg.image_size
+    bytes_per_slot = z_max * s * s * 3  # f16 image + uint8 label
+    budget_slots = int(cfg.pool_gb * (1 << 30) / bytes_per_slot)
+    # worst case pinned at once: the prefetch queue (depth K+1), the chunk
+    # in flight and the one under construction, each batch spanning
+    # ceil(B / z_min) + 1 subjects
+    per_batch = -(-cfg.batch_slices // max(z_min, 1)) + 1
+    min_slots = min(len(train_list), (2 * K + 2) * per_batch + 4)
+    n_slots = min(len(train_list), max(budget_slots, 1))
+    if n_slots < min_slots:
+        raise ValueError(
+            f"device_slices: pool_gb={cfg.pool_gb} holds {n_slots} volumes "
+            f"({bytes_per_slot / 2 ** 20:.1f} MiB each) but one dispatch "
+            f"chunk may pin {min_slots}; raise pool_gb or lower "
+            "batch_slices/steps_per_dispatch")
+    pool = DeviceCinePool(n_slots, z_max, s, s, device)
+    print(f"Device slice pool: {n_slots} slots x Z{z_max} @ {s}x{s} "
+          f"({pool.nbytes / 2 ** 30:.2f} GiB)")
+    return pool
+
+
+def _check_config(cfg: SATrainConfig, K: int):
+    if cfg.mesh_devices > 1:
+        raise NotImplementedError(
+            "mesh_devices > 1: training over several cards is not ported "
+            "(ROADMAP A14)")
+    if K > 1 and cfg.batch_slices <= 0:
+        raise ValueError("steps_per_dispatch > 1 requires batch_slices "
+                         "(a static batch shape to stack K batches)")
+    if cfg.device_slices:
+        if cfg.batch_slices <= 0:
+            raise ValueError("device_slices requires batch_slices (the "
+                             "pool gather needs a static batch shape)")
+        if not cfg.device_augment:
+            raise ValueError("device_slices requires device_augment: the "
+                             "pool holds un-augmented slices, so the "
+                             "affine augmentation must run in-step")
+
+
+def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
+          progress_every: int = 100, resume_from: Optional[str] = None):
+    """Run the training loop.  Returns (net, names, model_cfg, stats).
+
+    ``resume_from``: a bundle written by this trainer or by the JAX
+    package's — restores params, BN state, Adam state and the iteration
+    counter, adopting the bundle's architecture.  ``stats``: iterations
+    run, and from the end of the first call on (warm-up excluded) the
+    step loop's seconds (validation and checkpoints excluded), the
+    seconds it waited for the next chunk, and the steps it ran."""
+    K = max(1, int(cfg.steps_per_dispatch))
+    _check_config(cfg, K)
+    device = resolve_device(cfg.device)
+    data_list = scan_dataset(cfg.dataset_dir, cfg.seq_name)
+    if not data_list["train"]:
+        raise FileNotFoundError(
+            f"no training pairs under {cfg.dataset_dir}/train")
+
+    n_filter = tuple(cfg.num_filter * (2 ** i) for i in range(cfg.num_level))
+    model_cfg = fcn_mod.FCNConfig(n_class=cfg.n_class, n_level=cfg.num_level,
+                                  n_filter=n_filter, n_block=(2, 2, 3, 3, 3),
+                                  same_dim=32, fc=64)
+    start_iteration = 0
+    if resume_from:
+        # the bundle is self-describing: adopt ITS architecture
+        kind, model_cfg, names, params, state, extra = \
+            store.load_model_with_extra(resume_from)
+        if kind != "fcn":
+            raise ValueError(f"cannot resume FCN training from a {kind!r} "
+                             "bundle")
+        net = convert.fcn_from_jax(params, state, names, model_cfg)
+        start_iteration = int(extra.get("iteration", 0))
+        print(f"Resumed from {resume_from} at iteration {start_iteration}.")
+    else:
+        names = convert.fcn_names(model_cfg)
+        net = fcn_mod.init_weights(fcn_mod.FCN(model_cfg),
+                                   torch.Generator().manual_seed(cfg.seed))
+    # channels-last (NHWC) weights make every activation channels-last:
+    # cuDNN's bf16 convolutions then skip their layout transposes, and
+    # the train-mode BatchNorm takes PyTorch's channels-last kernels,
+    # which parallelise over pixels (the NCHW ones run a block per
+    # channel, 16-64 blocks here).  1.7x per production step on an H100
+    # (PERF.md, section 6).
+    net = net.to(device, memory_format=torch.channels_last)
+    layout = convert.fcn_layout(names, model_cfg)
+    optimizer = torch.optim.Adam(net.parameters(), lr=cfg.learning_rate)
+    if resume_from:
+        leaves = store.load_opt_state(resume_from)
+        if leaves is not None:
+            convert.load_adam_leaves(optimizer, net, layout, leaves)
+
+    loss_fn = make_fcn_loss(net, model_cfg, device_augment=cfg.device_augment,
+                            compute_dtype=torch.bfloat16 if cfg.bf16 else None)
+    if cfg.device_slices:
+        from ukbb_cardiac_tpu_torch.train.device_pool import \
+            make_pool_slice_multi_step
+        multi_step = make_pool_slice_multi_step(loss_fn, optimizer)
+    else:
+        step = steps_lib.make_train_step(loss_fn, optimizer)
+        multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
+
+    model_dir = os.path.join(cfg.checkpoint_dir or ".", cfg.model_name)
+    os.makedirs(model_dir, exist_ok=True)
+    log_f = open(os.path.join(model_dir, "train_log.jsonl"), "a")
+
+    rng = random.Random(cfg.seed + start_iteration)
+    # validation draws its own stream, so queue timing cannot change what
+    # a fixed seed samples
+    val_rng = random.Random(cfg.seed + 7_777_777 + start_iteration)
+    total = max_iterations or cfg.train_iteration
+    print("Start training...")
+    start_time = time.time()
+
+    from ukbb_cardiac_tpu_torch.train.prefetch import (BatchPrefetcher,
+                                                       make_chunk_builder,
+                                                       make_pool_chunk_builder,
+                                                       make_stage)
+
+    cache = (SubjectCache(int(cfg.cache_gb * (1 << 30)))
+             if cfg.cache_gb > 0 else None)
+    pool = None
+    if cfg.device_slices:
+        pool = _pool_for(cfg, data_list["train"], K, device)
+        sample = make_device_slice_sampler(
+            data_list["train"], cfg.batch_slices, pool,
+            image_size=cfg.image_size, rng=rng, cache=cache)
+    elif cfg.batch_slices > 0:
+        sample = make_slice_pool_sampler(
+            data_list["train"], cfg.batch_slices, image_size=cfg.image_size,
+            data_augmentation=not cfg.device_augment, shift=0, rotate=10,
+            scale=0.2, intensity=0, flip=False, rng=rng, cache=cache)
+    else:
+        def sample():
+            images, labels = get_random_batch(
+                data_list["train"], cfg.train_batch_size,
+                image_size=cfg.image_size,
+                data_augmentation=not cfg.device_augment, shift=0, rotate=10,
+                scale=0.2, intensity=0, flip=False, rng=rng, cache=cache)
+            return {"image": images, "label": labels}
+
+    if cfg.compact_transfer and not cfg.device_slices:
+        def make_batch():
+            b = sample()
+            return {"image": b["image"].astype(np.float16),
+                    "label": b["label"].astype(np.uint8)}
+    else:
+        make_batch = sample
+
+    prefetcher = BatchPrefetcher(make_batch, depth=2 if K == 1 else K + 1)
+    cadences = (cfg.validation_every, cfg.checkpoint_every, progress_every)
+    stage = make_stage(device)
+    if cfg.device_slices:
+        build_input = make_pool_chunk_builder(prefetcher, pool, K, total,
+                                              cadences, stage)
+    else:
+        build_input = make_chunk_builder(prefetcher, K, total, cadences,
+                                         stage)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    stats = {"iterations": 0, "steady_iterations": 0, "steady_s": 0.0,
+             "wait_s": 0.0}
+    t_aside = 0.0  # validation and checkpoint seconds inside the window
+    t_steady = None
+    iteration = start_iteration
+    try:
+        # a resume at/past total must not sample a never-used batch
+        pending = build_input(iteration) if iteration < total else None
+        while iteration < total:
+            t0 = time.time()
+            k_now, batches, seeds, release = pending
+            if cfg.device_slices:
+                pool_img, pool_lab, idx = batches
+                losses_k, aux = multi_step(pool_img, pool_lab, idx, seeds)
+            elif k_now > 1:
+                losses_k, aux = multi_step(batches, seeds)
+            else:
+                loss, aux = step(batches, seeds[0])
+                losses_k = loss[None]
+            release()
+            loss = losses_k[-1]
+            iteration += k_now
+            stats["iterations"] += k_now
+            if t_steady is None:
+                sync()  # the first call (cuDNN autotuning) is not timed
+                t_steady = time.time()
+            else:
+                stats["steady_iterations"] += k_now
+            if iteration < total:
+                t_wait = time.time()
+                pending = build_input(iteration)
+                if stats["steady_iterations"]:
+                    stats["wait_s"] += time.time() - t_wait
+
+            side = (iteration % cfg.validation_every == 0
+                    or iteration % progress_every == 0
+                    or iteration % cfg.checkpoint_every == 0
+                    or iteration == total)
+            if side and stats["steady_iterations"]:
+                # the queued steps finish inside the step loop's window,
+                # not in the side work's host sync set aside below
+                sync()
+            t_side = time.time()
+            if iteration % cfg.validation_every == 0 and \
+                    data_list["validation"]:
+                v_images, v_labels = get_random_batch(
+                    data_list["validation"], cfg.validation_batch_size,
+                    image_size=cfg.image_size, rng=val_rng, cache=cache)
+                v_pred = validation_predict(net, v_images, device)
+                rec = {"iteration": iteration, "loss": float(loss),
+                       "accuracy": float(aux["accuracy"]),
+                       "val_accuracy": float(np.mean(v_pred == v_labels)),
+                       # per iteration, whatever K the call ran
+                       "seconds": (time.time() - t0) / k_now}
+                for k in range(1, cfg.n_class):
+                    a, b = v_pred == k, v_labels == k
+                    rec[f"val_dice_{k}"] = float(
+                        2 * np.sum(a & b) / max(np.sum(a) + np.sum(b), 1e-7))
+                log_f.write(json.dumps(rec) + "\n")
+                log_f.flush()
+
+            if iteration % progress_every == 0:
+                print(f"Iteration {iteration}/{total}: loss = "
+                      f"{float(loss):.4f}, {(time.time() - t0) / k_now:.3f}"
+                      "s/iter")
+
+            if iteration % cfg.checkpoint_every == 0 or iteration == total:
+                save_checkpoint(os.path.join(model_dir,
+                                             f"model-{iteration}.npz"),
+                                net, names, optimizer, layout,
+                                {"iteration": iteration,
+                                 "seq_name": cfg.seq_name})
+            if stats["steady_iterations"]:
+                t_aside += time.time() - t_side
+        sync()
+        if t_steady is not None:
+            stats["steady_s"] = time.time() - t_steady - t_aside
+    finally:
+        prefetcher.close()
+        log_f.close()
+    print(f"Training took {time.time() - start_time:.3f}s.")
+    return net, names, model_cfg, stats
+
+
+@torch.no_grad()
+def validation_predict(net: fcn_mod.FCN, images: np.ndarray,
+                       device) -> np.ndarray:
+    """Argmax labels (N, X, Y) of the inference forward on (N, X, Y, 1)
+    images, through the deploy's ``SegmentationModel`` (on the card the
+    fused head kernel).  The head's weights are folded and packed afresh
+    from the current parameters on every call."""
+    from ukbb_cardiac_tpu_torch.infer.engine import SegmentationModel
+
+    model = SegmentationModel.from_fcn(net, device)
+    logits = model.forward(torch.from_numpy(images).to(device))
+    return torch.argmax(logits, dim=1).cpu().numpy()
+
+
+def save_checkpoint(path: str, net: fcn_mod.FCN, names, optimizer,
+                    layout, extra_meta: dict) -> None:
+    """Write the model and Adam state as a bundle both packages read."""
+    params, state = convert.fcn_to_jax(net, names)
+    kind = "resnet" if isinstance(net, fcn_mod.ResNetFCN) else "fcn"
+    store.save_model(path, kind, net.cfg, names, params, state,
+                     extra_meta=extra_meta,
+                     opt_leaves=convert.adam_leaves(optimizer, net, layout))
