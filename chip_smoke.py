@@ -20,7 +20,8 @@
      (24^2 / 6x6, 48^2 / 8x8, 96^2 / 13x13 at spacing 10, and the coarse
      levels densified at spacing 20 and 40) and B = 50 LA pairs on the
      128^2 bucket (32^2 / 7x7, 64^2 / 10x10, 128^2 / 16x16, and the same
-     densifies);
+     densifies), and the aortic label propagation's T - 2 = 98 pairs at
+     its (not square) crop and lattice, spacing 10;
 3. drives the main path as a user would: writes 3 phantom subjects
    (192, 208, 10, 50) int16, runs the port's SA deploy
    (``infer.deploy.deploy_dataset``) and ventricular-volume evaluation on
@@ -70,9 +71,25 @@
    by the port: card logits against the CPU's, its forward time per
    chunk, and ``segment_sequence_fused`` on the card through the head
    kernel;
-9. prints the card's name and power limit, one JSON line of kernel
-   figures (launches from the 1-worker cohort run), and, last,
-   ``{"ok": true, "device": {...}}``.
+9. the aortic trainer's slice: writes 3 bench-size aortic subjects
+   (240, 196, 1, 100) int16 annotated at ED and ES and runs
+   ``cli.propagate_aortic_annotation`` on the card (per subject wall,
+   registration device span, pairs, crop, Dice against the truth; both
+   B-spline kernels' launches) and holds the card's labels to the port's
+   CPU path on a 10-frame cut; then ``cli.train_network_ao`` on the
+   propagated labels at the released UNet-LSTM_ao widths, UNet and then
+   UNet-LSTM restoring it, in the reference profile (batches of 5
+   subjects, float32, host augmentation) and with the production options
+   (fixed window batches, 10 steps per call, bf16, device augmentation,
+   the device cine pool): ms per step, windows/s, loader wait, peak
+   memory, TFLOP/s; fails unless every loss falls, one float32 step's
+   card and CPU gradients agree and the trained bundle's card and CPU
+   deploys agree; last, one packed SA and one packed aortic dispatch
+   against the raw path's labels, with the bytes each ships;
+10. prints the card's name and power limit, one JSON line of kernel
+   figures (the head's launches from the 1-worker cohort run, the
+   B-spline kernels' from the propagation, with their times at its
+   shape), and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card (``torch.cuda.is_available()`` false) it exits 1 at once.  The
@@ -158,6 +175,31 @@ GRAD_BATCH, GRAD_RTOL = 8, 1e-3
 # ResNet-FCN deploy: card logits within RESNET_RTOL of the largest CPU
 # logit (the head kernel's 3xTF32 and cuDNN sum in another order)
 RESNET_RTOL = 1e-4
+# the aortic trainer's phase: the bench cine AO_SHAPE annotated at ED and
+# ES (frames 0 and T/2, as bench_accuracy.py's aortic cohort), its vessel
+# radii swinging by AO_PULSE over the cycle (the annotated frames share
+# one radius, so a registration that does nothing copies their labels to
+# every frame and is told apart only where the vessels move far), labels
+# propagated with RegConfig.aortic_motion() (1 level, 100 Adam steps, NMI,
+# spacing 10; T - 2 pairs) and held to the bounds the CPU tests set from
+# the JAX package's own drift (tests/test_torch_propagate.py): the share
+# of voxels and the mean per-frame Dice against the CPU's labels, the
+# mean Dice against the truth over the propagated frames, and every
+# frame's AAo Dice against the truth; then both trainer profiles at the
+# released UNet-LSTM_ao widths on the propagated labels: the reference
+# (batches of 5 subjects, float32, host augmentation) and the production
+# options (fixed window batches, K steps per call, bf16, device
+# augmentation, the device cine pool)
+AO_TRAIN_SUBJECTS = 3
+AO_ANNOTATED = (0, AO_SHAPE[3] // 2)
+AO_PULSE = 0.45
+PROP_MAX_DISAGREE, PROP_MIN_MEAN_DICE = 2 * 0.0131, 1 - 2 * (1 - 0.882)
+PROP_MIN_TRUTH_DICE, PROP_MIN_DICE = 1 - 2 * (1 - 0.872), 0.75
+PROP_CPU_T = 10                      # the reduced cine held to the CPU
+AO_TRAIN_ITERS = {"reference": 20, "production": 40}
+AO_BATCH_WINDOWS = {"UNet": 32, "UNet-LSTM": 8}
+AO_K = 10
+AO_SIZE_TRAIN = 256                  # the CLI's --image_size
 PULSE_PRESSURE = "Central pulse pressure during PWA"
 COHORT_STAGES = ("segment", "volumes", "wall_thickness", "strain",
                  "segment_la", "atrial_volumes", "strain_la", "aortic")
@@ -424,15 +466,89 @@ def write_cohort(data_dir, nifti, T):
     return truth
 
 
+def write_ao_annotated(d, nifti, T, seed):
+    """An aortic subject as the propagation takes it: the int16 cine
+    (240, 196, 1, T) of :func:`ao_phantom` (r_aa 18, r_da 12), its
+    sparse 4D label (ED and ES frames, 0 and T/2), the ED/ES stills and
+    their labels.  Returns the truth (X, Y, 1, T)."""
+    image, seg = ao_phantom(*AO_SHAPE[:2], T, r_aa=18.0, r_da=12.0,
+                            pulse_amp=AO_PULSE,
+                            rng=np.random.RandomState(seed))
+    os.makedirs(d)
+    save_nifti(nifti, os.path.join(d, "ao.nii.gz"), image, AFFINE_AO)
+    ed, es = 0, T // 2
+    label = np.zeros_like(seg)
+    label[..., ed], label[..., es] = seg[..., ed], seg[..., es]
+    save_nifti(nifti, os.path.join(d, "label_ao.nii.gz"), label, AFFINE_AO)
+    for fr, t in (("ED", ed), ("ES", es)):
+        save_nifti(nifti, os.path.join(d, f"ao_{fr}.nii.gz"), image[..., t],
+                   AFFINE_AO)
+        save_nifti(nifti, os.path.join(d, f"label_ao_{fr}.nii.gz"),
+                   seg[..., t], AFFINE_AO)
+    return seg
+
+
+def propagation_case():
+    """(pairs, crop (X, Y), lattice (Cx, Cy), spacing) of the propagation's
+    registrations on :func:`write_ao_annotated`'s subjects: the crop is
+    the annotated frames' bounding box + 10 (``auto_crop_image``)."""
+    from ukbb_cardiac_tpu_torch.ops.crop import foreground_bbox
+    from ukbb_cardiac_tpu_torch.reg.bspline import lattice_shape
+
+    _, seg = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0, r_da=12.0,
+                        pulse_amp=AO_PULSE)
+    x1, x2, y1, y2, _, _ = foreground_bbox(seg[..., list(AO_ANNOTATED)], 10)
+    crop = (x2 - x1, y2 - y1)
+    return (AO_SHAPE[3] - len(AO_ANNOTATED), crop, lattice_shape(crop, 10),
+            10)
+
+
 def dice(a, b, label):
     a, b = a == label, b == label
     return 2.0 * np.logical_and(a, b).sum() / max(a.sum() + b.sum(), 1)
 
 
+def propagation_failures(got, truth, ref=None):
+    """The propagation bounds (PROP_*) that the labels ``got`` miss:
+    against the phantom ``truth`` and, where given, the labels ``ref`` of
+    another run of the same subject."""
+    T = truth.shape[-1]
+    moving = [t for t in range(T) if t not in (0, T // 2)]
+    failed = []
+    if ref is not None:
+        if np.mean(got != ref) > PROP_MAX_DISAGREE:
+            failed.append("disagree")
+        if np.mean([dice(got[..., t], ref[..., t], k) for t in range(T)
+                    for k in (1, 2)]) < PROP_MIN_MEAN_DICE:
+            failed.append("mean_dice")
+    if np.mean([dice(got[..., t], truth[..., t], k) for t in moving
+                for k in (1, 2)]) < PROP_MIN_TRUTH_DICE:
+        failed.append("truth_dice")
+    if min(dice(got[..., t], truth[..., t], 1) for t in range(T)) \
+            <= PROP_MIN_DICE:
+        failed.append("frame_dice")
+    return failed
+
+
+def idle_propagation(prop, nifti, d, T, seed):
+    """The control: the subject of :func:`write_ao_annotated` propagated
+    on the host with every registration field zero, which copies the
+    annotated frames' labels to every frame.  Returns its labels."""
+    real = prop.register_pairs
+    prop.register_pairs = lambda crop, pairs, cfg, device: np.zeros(
+        (len(pairs),) + crop.shape[:2] + (2,), np.float32)
+    try:
+        write_ao_annotated(d, nifti, T, seed)
+        out = prop.propagate_subject(d, device="cpu")
+    finally:
+        prop.register_pairs = real
+    return np.asarray(nifti.load(out).dataobj)
+
+
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/9] build", flush=True)
+    print("[1/10] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -519,7 +635,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/9] fused head vs its plain version at the main path's shapes",
+    print("[2/10] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -563,7 +679,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/9] fused head with the LA bundles vs its plain version at "
+    print(f"[2/10] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -595,17 +711,22 @@ def bspline_taps(tb, spacing: int, device) -> torch.Tensor:
 
 def bspline_bounds(B, C, X, s):
     """Least time of the forward and the adjoint on this card for these
-    inputs: bytes (each input read once, each output written once) over
-    the memory rate against the kernel's float32 FMAs (2 FLOP each) over
-    the float32 peak.  Returns {name: (ms, 'bytes' | 'operations')}."""
-    lat, field = B * C * C * 2 * 4, B * X * X * 2 * 4
+    inputs (lattice C = (Cx, Cy), image X = (X, Y)): bytes (each input
+    read once, each output written once) over the memory rate against the
+    kernel's float32 FMAs (2 FLOP each) over the float32 peak.  Returns
+    {name: (ms, 'bytes' | 'operations')}."""
+    (Cx, Cy), (X, Y) = C, X
+    lat, field = B * Cx * Cy * 2 * 4, B * X * Y * 2 * 4
     table = 4 * s * 4
     # forward: per column and run of s rows, 4 x 4 FMAs; then 4 per value
-    fwd_flop = 2 * B * 2 * (X * -(-X // s) * 16 + X * X * 4)
-    # adjoint: each control's support, rows then columns (clipped)
-    sup = [min(X, (i + 1) * s) - max(0, (i - 3) * s) for i in range(C)]
-    sup = [max(n, 0) for n in sup]
-    adj_flop = 2 * B * 2 * (sum(sup) * X + C * sum(sup))
+    fwd_flop = 2 * B * 2 * (Y * -(-X // s) * 16 + X * Y * 4)
+
+    def support(n_ctl, n):  # each control's pixels along one axis
+        return sum(max(min(n, (i + 1) * s) - max(0, (i - 3) * s), 0)
+                   for i in range(n_ctl))
+
+    # adjoint: rows then columns (clipped supports)
+    adj_flop = 2 * B * 2 * (support(Cx, X) * Y + Cx * support(Cy, Y))
     out = {}
     for name, nbytes, flop in (("bspline_field", lat + field + table,
                                 fwd_flop),
@@ -619,50 +740,59 @@ def bspline_bounds(B, C, X, s):
 
 def bspline_phase(card, tb, bf):
     """The B-spline kernels against their plain versions at every shape of
-    the strain path; times at the finest level go into the kernels line."""
+    the strain path and at the aortic propagation's.  Returns the times at
+    the SA strain path's finest level (the kernels line's, as through
+    earlier slices) and at the propagation's shape."""
     import torch.nn.functional as F
 
-    print("[2/9] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/10] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
     rng = np.random.RandomState(11)
     result = {}
-    for B, X, C, s in BSPLINE_CASES:
-        c = torch.from_numpy(rng.randn(B, C, C, 2).astype(
+    sa_case = (N_PAIRS, (96, 96), (13, 13), 10)
+    cases = [(B, (X, X), (C, C), s) for B, X, C, s in BSPLINE_CASES]
+    cases.append(propagation_case())
+    for B, (X, Y), (Cx, Cy), s in cases:
+        c = torch.from_numpy(rng.randn(B, Cx, Cy, 2).astype(
             np.float32)).cuda()
-        G = torch.from_numpy(rng.randn(B, X, X, 2).astype(
+        G = torch.from_numpy(rng.randn(B, X, Y, 2).astype(
             np.float32)).cuda()
         cr = c.clone().requires_grad_(True)
-        field = bf.bspline_field(cr, (X, X), s)
+        field = bf.bspline_field(cr, (X, Y), s)
         field.backward(G)
         torch.cuda.synchronize()
         with torch.no_grad():
-            plain = tb.bspline_dense_field_plain(c, (X, X), s)
-            plain_adj = tb.bspline_adjoint_plain(G, (C, C), s)
+            plain = tb.bspline_dense_field_plain(c, (X, Y), s)
+            plain_adj = tb.bspline_adjoint_plain(G, (Cx, Cy), s)
         err = (field.detach() - plain).abs().max().item()
         err_adj = (cr.grad - plain_adj).abs().max().item()
         if not err <= FIELD_ATOL or not err_adj <= ADJOINT_ATOL:
             raise AssertionError(
-                f"bspline B={B} at {X}^2/{C}x{C}/s{s}: max |kernel - plain| "
-                f"{err} (atol {FIELD_ATOL}), adjoint {err_adj} "
+                f"bspline B={B} at {X}x{Y}/{Cx}x{Cy}/s{s}: max |kernel - "
+                f"plain| {err} (atol {FIELD_ATOL}), adjoint {err_adj} "
                 f"(atol {ADJOINT_ATOL})")
         W = bspline_taps(tb, s, c.device)
         c_nchw = c.permute(0, 3, 1, 2).contiguous()
-        G_nchw = G.permute(0, 3, 1, 2).contiguous()
+        # the yardstick's correlation yields a control only where the
+        # cotangent reaches it: zero rows beyond the image extend it to
+        # the lattice's last control (a shorter crop than it covers)
+        Xg, Yg = max(X, (Cx - 4) * s + 1), max(Y, (Cy - 4) * s + 1)
+        G_nchw = F.pad(G.permute(0, 3, 1, 2), (0, Yg - Y, 0, Xg - X))
         lo = 3 * s - 1
 
         def fwd():
-            return bf.bspline_field(c, (X, X), s)
+            return bf.bspline_field(c, (X, Y), s)
 
         def adj():
-            return bf.bspline_field_adjoint(G, (C, C), s)
+            return bf.bspline_field_adjoint(G, (Cx, Cy), s)
 
         def lib_fwd():
             return F.conv_transpose2d(c_nchw, W, stride=s,
-                                      groups=2)[:, :, lo:lo + X, lo:lo + X]
+                                      groups=2)[:, :, lo:lo + X, lo:lo + Y]
 
         def lib_adj():
             return F.conv2d(G_nchw, W, stride=s, groups=2,
-                            padding=4 * s - 1)[:, :, 1:1 + C, 1:1 + C]
+                            padding=4 * s - 1)[:, :, 1:1 + Cx, 1:1 + Cy]
 
         with torch.no_grad():
             lib_err = (lib_fwd().permute(0, 2, 3, 1) - plain).abs().max()
@@ -672,18 +802,19 @@ def bspline_phase(card, tb, bf):
                 "bspline_field": {
                     "ms": graph_ms(fwd), "eager_ms": cuda_ms(fwd),
                     "plain_ms": graph_ms(lambda: tb.bspline_dense_field_plain(
-                        c, (X, X), s)),
+                        c, (X, Y), s)),
                     "library_ms": graph_ms(lib_fwd), "max_abs_err": err},
                 "bspline_field_adjoint": {
                     "ms": graph_ms(adj), "eager_ms": cuda_ms(adj),
                     "plain_ms": graph_ms(lambda: tb.bspline_adjoint_plain(
-                        G, (C, C), s)),
+                        G, (Cx, Cy), s)),
                     "library_ms": graph_ms(lib_adj),
                     "max_abs_err": err_adj}}
-        bounds = bspline_bounds(B, C, X, s)
+        bounds = bspline_bounds(B, (Cx, Cy), (X, Y), s)
         for name, t in times.items():
             t["bound_ms"], t["bound_by"] = bounds[name]
-            print(f"  {name} B={B} {X}^2 lattice {C}x{C} s={s}: max |kernel - "
+            print(f"  {name} B={B} {X}x{Y} lattice {Cx}x{Cy} s={s}: max "
+                  "|kernel - "
                   f"plain| {t['max_abs_err']:.3e}; kernel {t['ms']:.5f} ms "
                   f"(graph replay; eager {t['eager_ms']:.5f} ms), plain "
                   f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
@@ -691,14 +822,16 @@ def bspline_phase(card, tb, bf):
                   f"[{card}]")
         print(f"  yardstick vs plain: conv_transpose2d {lib_err.item():.3e}, "
               f"conv2d {lib_err_adj.item():.3e}")
-        if (B, X, C, s) == (N_PAIRS, 96, 13, 10):
-            result = times
+        if (B, (X, Y), (Cx, Cy), s) == sa_case:
+            result["sa"] = times
+        if (B, (X, Y), (Cx, Cy), s) == cases[-1]:
+            result["propagation"] = dict(times, shape=[B, X, Y, Cx, Cy, s])
     return result
 
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/9] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/10] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -786,7 +919,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/9] main path: wall thickness + SA strain "
+    print(f"[4/10] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -993,7 +1126,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/9] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/10] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1231,7 +1364,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/9] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/10] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1372,7 +1505,7 @@ def train_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import sa as tsa
 
-    print(f"[7/9] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+    print(f"[7/10] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
           f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
           flush=True)
     data = os.path.join(work, "train_set")
@@ -1598,7 +1731,7 @@ def resnet_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 
-    print("[8/9] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+    print("[8/10] ResNet-FCN deploy: seeded init at the FCN_sa widths",
           flush=True)
     cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
                             n_filter=(16, 32, 64, 128, 256),
@@ -1641,6 +1774,343 @@ def resnet_phase(card, work, fh):
     return launches
 
 
+def lstm_flops(n_frames, X, Y, c_in, hidden, n_class, directions=2):
+    """FLOPs of a (bi)ConvLSTM head's forward over ``n_frames`` frames:
+    each step's 3x3 gate conv over [x, h], then the 1x1 output conv."""
+    gates = 2.0 * X * Y * (c_in + hidden) * 4 * hidden * 9
+    out = 2.0 * X * Y * directions * hidden * n_class
+    return n_frames * (directions * gates + out)
+
+
+def propagation_phase(card, work, bf):
+    """The propagation CLI on the card over AO_TRAIN_SUBJECTS bench-size
+    aortic subjects; the card's labels against the port's CPU path on a
+    reduced cine.  Returns (training set root, truth, launches)."""
+    from ukbb_cardiac_tpu_torch.cli import propagate_aortic_annotation
+    from ukbb_cardiac_tpu_torch.data import propagate_aortic as prop
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    B, crop_shape, lattice, spacing = propagation_case()
+    print(f"[9/10] aortic labels propagated (RegConfig.aortic_motion(): 1 "
+          f"level, 100 Adam steps, NMI) on {AO_TRAIN_SUBJECTS} {AO_SHAPE} "
+          f"int16 cines annotated at frames {AO_ANNOTATED}", flush=True)
+    root = os.path.join(work, "ao_train")
+    data = os.path.join(root, "train")
+    truth = {f"{4000000 + i}": write_ao_annotated(
+        os.path.join(data, f"{4000000 + i}"), nifti, AO_SHAPE[3], 40 + i)
+        for i in range(AO_TRAIN_SUBJECTS)}
+    spans = []
+    register_pairs = prop.register_pairs
+
+    def timed(crop_img, pairs, cfg, device=None):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = register_pairs(crop_img, pairs, cfg, device)
+        ev[1].record()
+        ev[1].synchronize()
+        spans.append((len(pairs), crop_img.shape[:2],
+                      ev[0].elapsed_time(ev[1])))
+        return out
+
+    prop.register_pairs = timed
+    torch.cuda.reset_peak_memory_stats()
+    bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
+    try:
+        result = propagate_aortic_annotation.main(
+            ["--data_dir", data, "--device", "cuda"])
+    finally:
+        prop.register_pairs = register_pairs
+    launches = {"bspline_field": bf.bspline_field.launches,
+                "bspline_field_adjoint": bf.bspline_field.adjoint_launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if result.failed or len(spans) != AO_TRAIN_SUBJECTS:
+        raise AssertionError(f"propagation failed: {result.failed}")
+    failed = {}
+    for (subject, tr), (n, shape, ms) in zip(sorted(truth.items()), spans):
+        lab = np.asarray(nifti.load(os.path.join(
+            data, subject, "label_ao_prop.nii.gz")).dataobj)
+        d = np.array([[dice(lab[..., t], tr[..., t], k) for k in (1, 2)]
+                      for t in range(AO_SHAPE[3])])
+        failed[subject] = propagation_failures(lab, tr)
+        wall = result.seconds[os.path.join(data, subject)]
+        print(f"  {subject}: wall {wall:.3f} s, "
+              f"registration + densify device span {ms:.3f} ms, {n} pairs "
+              f"at crop {tuple(shape)}, Dice AAo/DAo mean "
+              f"{d[:, 0].mean():.4f}/{d[:, 1].mean():.4f}, min "
+              f"{d[:, 0].min():.4f}/{d[:, 1].min():.4f} [{card}]")
+        if tuple(shape) != crop_shape or n != B:
+            raise AssertionError(f"crop {shape}, {n} pairs: phase 2 checked "
+                                 f"{crop_shape}, {B}")
+    # the control: the first subject with no registration at all must miss
+    # both bounds against the truth
+    subject = sorted(truth)[0]
+    idle = idle_propagation(prop, nifti, os.path.join(work, "prop_idle"),
+                            AO_SHAPE[3], 40)
+    idle_failed = propagation_failures(idle, truth[subject])
+    print(f"  bounds missed against the truth (mean Dice over the "
+          f"propagated frames >= {PROP_MIN_TRUTH_DICE:.3f}, every AAo "
+          f"Dice > {PROP_MIN_DICE}): {failed}; by {subject} with every "
+          f"field zero (the control): {idle_failed}")
+    if any(failed.values()) or set(idle_failed) != {"truth_dice",
+                                                    "frame_dice"}:
+        raise AssertionError("propagation: the card's labels miss a bound, "
+                             "or the control passes one")
+    per_subject = (100 + 1, 100)  # an Adam step each, plus the densify
+    print(f"  B-spline launches: {launches} ({per_subject} per subject); "
+          f"max allocated {peak:.3f} GiB (the NMI Parzen weights of {B} "
+          f"pairs)")
+    # one subject's registration again under torch.profiler: device
+    # operations and the time the card was busy against the span
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = np.random.RandomState(0).rand(*crop_shape, 1, B + 2).astype(
+        np.float32)
+    pairs = [(t - 1, t) for t in range(1, B + 1)]
+    cfg = prop.RegConfig.aortic_motion()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        ev[0].record()
+        prop.register_pairs(frames, pairs, cfg, "cuda")
+        ev[1].record()
+        torch.cuda.synchronize()
+    kern = [e for e in pr.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_ops = sum(e.count for e in kern)
+    span = ev[0].elapsed_time(ev[1])
+    print(f"  one registration of {B} pairs at {crop_shape} under "
+          f"torch.profiler: {n_ops} device operations ({n_ops / 100:.1f} "
+          f"per Adam step), busy {busy:.3f} ms of a {span:.3f} ms span "
+          f"({100 * (1 - busy / span):.1f} % idle) [{card}]")
+    if (launches["bspline_field"] != AO_TRAIN_SUBJECTS * per_subject[0]
+            or launches["bspline_field_adjoint"]
+            != AO_TRAIN_SUBJECTS * per_subject[1]):
+        raise AssertionError(f"propagation: launches {launches}")
+
+    labels = {}
+    for dev in ("cuda", "cpu"):
+        d = os.path.join(work, "prop_cut", dev)
+        cut_truth = write_ao_annotated(d, nifti, PROP_CPU_T, 40)
+        t0 = time.perf_counter()
+        prop.propagate_subject(d, device=dev)
+        labels[dev] = np.asarray(nifti.load(os.path.join(
+            d, "label_ao_prop.nii.gz")).dataobj)
+        print(f"  {PROP_CPU_T}-frame cut on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s")
+    got, ref = labels["cuda"], labels["cpu"]
+    disagree = float(np.mean(got != ref))
+    mean_dice = float(np.mean([dice(got[..., t], ref[..., t], k)
+                               for t in range(PROP_CPU_T) for k in (1, 2)]))
+    failed = propagation_failures(got, cut_truth, ref)
+    idle = idle_propagation(prop, nifti, os.path.join(work, "prop_cut",
+                                                      "idle"), PROP_CPU_T, 40)
+    idle_failed = propagation_failures(idle, cut_truth, ref)
+    print(f"  card vs CPU labels: {disagree:.5f} of voxels differ (bound "
+          f"{PROP_MAX_DISAGREE:.4f}), mean per-frame Dice {mean_dice:.4f} "
+          f"(bound {PROP_MIN_MEAN_DICE:.3f}); bounds missed {failed}; by "
+          f"every field zero (the control) {idle_failed}")
+    if failed or not {"mean_dice", "truth_dice",
+                      "frame_dice"} <= set(idle_failed):
+        raise AssertionError("card and CPU propagations differ beyond the "
+                             "CPU bounds, or the control passes them")
+    return root, truth, launches
+
+
+def ao_train_phase(card, root, truth, work):
+    """``cli.train_network_ao`` on the propagated labels at the released
+    UNet-LSTM_ao widths: UNet, then UNet-LSTM restoring it, in the
+    reference profile and with the production options; one float32 step's
+    card and CPU gradients; the trained UNet-LSTM bundle deployed on the
+    card and on the CPU."""
+    from ukbb_cardiac_tpu_torch.cli import train_network_ao
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import deploy_dataset_ao
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+
+    print(f"[9/10] aortic trainer on the propagated labels: U-Net 16-256, "
+          f"5 levels, BiConvLSTM 16 hidden, {AO_SIZE_TRAIN}^2 crops",
+          flush=True)
+    # one validation subject with its true labels
+    v = os.path.join(root, "validation", "4100000")
+    seg = write_ao_annotated(v, nifti, AO_SHAPE[3], 50)
+    save_nifti(nifti, os.path.join(v, "label_ao_prop.nii.gz"), seg,
+               AFFINE_AO)
+    bundles = {}
+    for profile in ("reference", "production"):
+        n_iter = AO_TRAIN_ITERS[profile]
+        ckpt = os.path.join(work, f"ao_ckpt_{profile}")
+        unet_bundle = None
+        for model in ("UNet", "UNet-LSTM"):
+            flags = ["--dataset_dir", root, "--model", model,
+                     "--train_iteration", str(n_iter), "--checkpoint_dir",
+                     ckpt, "--device", "cuda"]
+            if profile == "production":
+                flags += ["--batch_windows", str(AO_BATCH_WINDOWS[model]),
+                          "--steps_per_dispatch", str(AO_K), "--bf16",
+                          "--device_augment", "--device_windows",
+                          "--compact_transfer", "--cache_gb", "2"]
+            if unet_bundle:
+                flags += ["--model_path", unet_bundle]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            net, names, ucfg, stats = train_network_ao.main(flags)
+            wall = time.perf_counter() - t0
+            cfg = tao.AoTrainConfig(model=model)
+            (model_dir,) = [os.path.join(ckpt, m) for m in os.listdir(ckpt)
+                            if m.startswith(model + "_")]
+            with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            bundle = os.path.join(model_dir, f"model-{n_iter}.npz")
+            bundles[(profile, model)] = bundle
+            if model == "UNet":
+                unet_bundle = bundle
+            steps = stats["steady_iterations"]
+            ms = 1e3 * stats["steady_s"] / max(steps, 1)
+            prod = profile == "production"
+            tw = cfg.time_window
+            # windows per step: fixed in production; the reference's 5
+            # subjects hold 2 annotated frames each
+            windows = (AO_BATCH_WINDOWS[model] if prod
+                       else 5 * len(AO_ANNOTATED))
+            side = AO_SIZE_TRAIN
+            dtype = torch.bfloat16 if prod else torch.float32
+            unet = net.unet if model == "UNet-LSTM" else net
+            x = torch.zeros((windows * tw, 1, side, side), device="cuda",
+                            dtype=dtype)
+            with torch.no_grad():
+                f_unet = conv_flops(unet, lambda: unet(x))
+            # the U-Net trains in phase 1 (forward + backward); in phase 2
+            # it runs forward only, the LSTM forward + backward
+            flop = 3 * f_unet if model == "UNet" else (
+                f_unet + 3 * lstm_flops(windows * tw, side, side, 16, 16, 3))
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            losses = [r["loss"] for r in log]
+            print(f"  {profile} {model}: {stats['iterations']} iterations in "
+                  f"{wall:.2f} s; steady {steps} steps at {ms:.4f} ms/step, "
+                  f"{1e3 * windows / ms:.2f} windows/s ({tw} frames each), "
+                  f"waited on the loader {stats['wait_s']:.4f} s of "
+                  f"{stats['steady_s']:.4f} s; max allocated {mem:.3f} GiB; "
+                  f"{flop / 1e12:.4f} TFLOP per step at "
+                  f"{flop / ms / 1e9:.2f} TFLOP/s [{card}]")
+            print(f"  {profile} {model}: loss by log record "
+                  + ", ".join(f"{r['iteration']}: {r['loss']:.4f}"
+                              for r in log)
+                  + "; last val Dice AAo/DAo "
+                  + f"{log[-1]['val_dice_aa']:.3f}/"
+                  + f"{log[-1]['val_dice_da']:.3f}")
+            if not (all(math.isfinite(v) for v in losses)
+                    and len(losses) >= 2 and losses[-1] < losses[0]):
+                raise AssertionError(f"{profile} {model}: loss not finite "
+                                     f"or not falling: {losses}")
+
+    # one float32 step (joint: the U-Net takes gradients too) from the
+    # trained production UNet-LSTM, card vs CPU
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.models.wrappers import UNetLSTM
+
+    bundle = bundles[("production", "UNet-LSTM")]
+    _, ucfg, names, params, state = store.load_model(bundle)
+    cfg = tao.AoTrainConfig(model="UNet-LSTM", joint_train=True)
+    images, labels = tao.get_random_batch_ao(
+        tao.scan_dataset_ao(root)["train"], 1, image_size=AO_SIZE_TRAIN,
+        time_window=cfg.time_window, rng=random.Random(0))
+    batch = {"image": torch.from_numpy(images[:1]),
+             "label": torch.from_numpy(labels[:1])}
+    grads, loss = {}, {}
+    for d in ("cpu", "cuda"):
+        net = UNetLSTM(convert.unet_from_jax(params, state, names, ucfg),
+                       convert.convlstm_from_jax(params, True)).to(d)
+        value, _ = tao.make_ao_loss(cfg, net)(
+            {k: t.to(d) for k, t in batch.items()}, 1)
+        value.backward()
+        loss[d] = float(value.detach())
+        grads[d] = {k: p.grad.cpu() for k, p in net.named_parameters()
+                    if p.grad is not None}
+    worst = max(float((grads["cuda"][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in grads["cpu"].items())
+    print(f"  one f32 joint UNet-LSTM step on "
+          f"{tuple(batch['image'].shape)}: loss card {loss['cuda']:.6f}, CPU "
+          f"{loss['cpu']:.6f}; {len(grads['cpu'])} gradients differ by at "
+          f"most {worst:.3e} of a tensor's largest (bound {GRAD_RTOL})")
+    if (worst > GRAD_RTOL or len(grads["cuda"]) != len(grads["cpu"])
+            or abs(loss["cuda"] - loss["cpu"]) > 1e-4 * loss["cpu"]):
+        raise AssertionError(f"aortic card and CPU gradients differ: {worst}")
+
+    # the trained bundle's deploy, card vs CPU, on a 10-frame cut
+    dep = os.path.join(work, "ao_train_deploy")
+    segs = {}
+    for d in ("cuda", "cpu"):
+        sub = os.path.join(dep, d, "4200000")
+        tr = write_ao_annotated(sub, nifti, PROP_CPU_T, 60)
+        deploy_dataset_ao(bundle, os.path.join(dep, d), device=d)
+        segs[d] = np.asarray(nifti.load(os.path.join(
+            sub, "seg_ao.nii.gz")).dataobj)
+    agree = float((segs["cuda"] == segs["cpu"]).mean())
+    dd = [dice(segs["cuda"], tr, k) for k in (1, 2)]
+    print(f"  trained UNet-LSTM bundle deployed on a {PROP_CPU_T}-frame cine: "
+          f"card vs CPU label agreement {agree:.6f}, Dice AAo/DAo "
+          f"{dd[0]:.4f}/{dd[1]:.4f}")
+    if agree < 0.999:
+        raise AssertionError(f"trained aortic bundle: card and CPU labels "
+                             f"agree on {agree}")
+
+
+def packed_phase(card, engine_mod, deploy):
+    """One packed SA dispatch and one packed aortic dispatch on the card
+    (a fresh engine's tracker has no sample yet: the link counts as
+    degraded) against the raw path's labels; the bytes each ships."""
+    from ukbb_cardiac_tpu_torch.infer import transfer
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
+
+    print("[9/10] the packed up-leg: one SA and one aortic cine, packed and "
+          "raw", flush=True)
+    sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
+                        wall=0.039 * MAIN_SHAPE[0],
+                        rng=np.random.RandomState(5))
+    ao, _ = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0, r_da=12.0,
+                       rng=np.random.RandomState(6))
+    cases = (
+        ("SA", engine_mod.InferenceEngine(
+            deploy.load_segmentation_model(BUNDLE, "cuda")),
+         lambda e, c: e.segment_sequence_dispatch(c), sa),
+        ("aortic", load_aortic_engine(AO_BUNDLE, "cuda"),
+         lambda e, c: e.segment_cine_dispatch(c), ao))
+    for name, eng, dispatch, cine in cases:
+        cine = np.asfortranarray(cine)  # as a NIfTI cine arrives
+        out, ms, host = {}, {}, {}
+        for mode in ("packed", "raw"):
+            if mode == "raw":
+                eng._bw.poll()
+                sampled = eng._bw.mbps
+                eng._bw = transfer.BandwidthTracker()
+                eng._bw.update(10 ** 9, 0.1)
+            before = eng._stats.h2d_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = dispatch(eng, cine)
+            host[mode] = time.perf_counter() - t0
+            out[mode] = pending.result()
+            ms[mode] = pending.device_ms
+            out[mode + "_bytes"] = eng._stats.h2d_bytes - before
+        plan = transfer.plan_pack(cine, None)
+        print(f"  {name} {cine.shape} {cine.dtype}: packed ({plan.mode}, "
+              f"{8 + plan.hi_bits}-bit) {out['packed_bytes']} bytes, raw "
+              f"{out['raw_bytes']} bytes; dispatch host time packed "
+              f"{host['packed']:.4f} s, raw {host['raw']:.4f} s; device span "
+              f"packed {ms['packed']:.3f} ms, raw {ms['raw']:.3f} ms; the "
+              f"packed upload's bandwidth sample "
+              f"{'none' if sampled is None else f'{sampled:.1f} MB/s'} "
+              f"[{card}]")
+        if (eng._stats.packed_dispatches != 1
+                or not np.array_equal(out["packed"], out["raw"])
+                or out["packed_bytes"] >= out["raw_bytes"]):
+            raise AssertionError(f"{name}: packed labels differ from raw or "
+                                 f"nothing was packed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1680,34 +2150,49 @@ def main() -> int:
         print(f"  earlier paths' launches {launches}")
         # the kernels line counts the cohort's 1-worker run: the path a
         # user runs by default, through every kernel
-        launches, truth = cohort_phase(card, work)
+        cohort_launches, truth = cohort_phase(card, work)
         aortic_phase(card, work, truth)
         train_launches = train_phase(card, work, fh)
         resnet_launches = resnet_phase(card, work, fh)
         print(f"  fused_head launches: training phase {train_launches}, "
               f"ResNet phase {resnet_launches}")
+        # this slice's path: the propagation (both B-spline kernels in
+        # every Adam step at its crop), then the aortic trainer, which
+        # runs cuDNN and PyTorch only
+        root, ao_truth, prop_launches = propagation_phase(card, work, bf)
+        ao_train_phase(card, root, ao_truth, work)
+        packed_phase(card, engine_mod, deploy)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[9/9] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[10/10] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
         "source": "ukbb_cardiac_tpu_torch/csrc/fused_head.cu",
         "replaces": "ukbb_cardiac_tpu/models/pallas_head.py:178",
-        "launches": launches["fused_head"],
+        "launches": cohort_launches["fused_head"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None}]
+        "bound_by": head["bound_by"], "library_ms": None,
+        "path": "cohort, 1 worker"}]
+    # the B-spline kernels: launches on the cohort's path and times at the
+    # SA strain path's 96^2 (the series of earlier slices), and under
+    # "propagation" the aortic propagation's launches and times at its
+    # shape (pairs, crop X, Y, lattice, spacing)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     for name in ("bspline_field", "bspline_field_adjoint"):
-        t = spline[name]
+        t, tp = spline["sa"][name], spline["propagation"][name]
         entries.append({
             "name": name, "route": "cuda",
             "source": "ukbb_cardiac_tpu_torch/csrc/bspline_field.cu",
             "replaces": "ukbb_cardiac_tpu/reg/pallas_bspline.py:84",
-            "launches": launches[name], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "launches": cohort_launches[name],
+            **{k: t[k] for k in keys},
+            "path": "cohort, 1 worker",
+            "propagation": {"launches": prop_launches[name],
+                            "shape": spline["propagation"]["shape"],
+                            **{k: tp[k] for k in keys}}})
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -382,3 +382,186 @@ def test_pool_upload_is_ordered_after_queued_gathers(card):
     assert float(got["image"].float().min()) == 1.0
     assert int(got["label"].min()) == 1
     assert float(pool.snapshot()[0].float().min()) == 2.0
+
+
+@pytest.mark.cuda
+def test_packed_up_leg_round_trip_on_card(card):
+    """The packed up-leg on the card: unpack_torch rebuilds a cine exactly
+    (plane and delta), and the SA and aortic engines give the raw path's
+    labels byte for byte."""
+    from ukbb_cardiac_tpu_torch.infer import transfer
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
+
+    rng = np.random.RandomState(4)
+    base = rng.randint(0, 4000, (64, 72, 3, 1))
+    walk = rng.randint(-30, 31, (64, 72, 3, 20))
+    walk[..., 0] = 0
+    quiet = np.clip(base + np.cumsum(walk, -1), 0, 4095).astype(np.int16)
+    noisy = (rng.rand(64, 72, 3, 20) * 1000).astype(np.int16)
+    for cine, mode in ((quiet, "delta"), (noisy, "plane")):
+        plan = transfer.plan_pack(cine, None)
+        assert plan.mode == mode
+        buf = torch.from_numpy(transfer.pack_buffer(cine, plan)).to(card)
+        np.testing.assert_array_equal(
+            transfer.unpack_torch(buf, plan).cpu().numpy(), cine)
+
+    fast = transfer.BandwidthTracker()
+    fast.update(10 ** 9, 0.1)
+    engines = [
+        (InferenceEngine(SegmentationModel.from_fcn(_random_fcn(), card)),
+         lambda e, c: e.segment_sequence_dispatch(c).result(),
+         np.asfortranarray(noisy[:, :, :2, :10])),
+        (load_aortic_engine(os.path.join(WEIGHTS, "UNet-LSTM_ao.npz"), card),
+         lambda e, c: e.segment_cine_dispatch(c).result(),
+         np.asfortranarray(_ao_cine(120, 98, 12)))]
+    for eng, run, cine in engines:
+        packed = run(eng, cine)  # no bandwidth sample yet: packed
+        assert eng._stats.packed_dispatches == 1
+        eng._bw = fast
+        raw = run(eng, cine)
+        assert eng._stats.packed_dispatches == 1
+        assert eng._stats.h2d_dispatches == 2
+        np.testing.assert_array_equal(packed, raw)
+        assert len(np.unique(raw)) > 1
+
+
+def _write_ao_annotated(d, X=64, Y=64, T=8, seed=3, pulse_amp=0.45):
+    """An aortic subject for the propagation (the geometry of
+    tests/phantom.py::ao_phantom, the vessel radii swinging by
+    ``pulse_amp``): the float cine, its ED/ES-annotated 4D label and the
+    ED/ES stills.  Returns the truth (X, Y, 1, T)."""
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    pulse = 1.0 + pulse_amp * np.sin(2 * np.pi * np.arange(T) / T)
+    off_aa = max(14, int(np.ceil(9 * (1 + pulse_amp))) + 2)
+    off_da = max(16, int(np.ceil(6 * (1 + pulse_amp))) + 2)
+    image = np.zeros((X, Y, 1, T), np.float32)
+    seg = np.zeros((X, Y, 1, T), np.int16)
+    for t in range(T):
+        aa = ((xx - (X // 2 - off_aa)) ** 2 + (yy - Y // 2) ** 2
+              <= (9 * pulse[t]) ** 2)
+        da = ((xx - (X // 2 + off_da)) ** 2 + (yy - Y // 2) ** 2
+              <= (6 * pulse[t]) ** 2)
+        seg[..., 0, t][aa] = 1
+        seg[..., 0, t][da & ~aa] = 2
+        img = np.where(aa, 900.0, np.where(da, 850.0, 0.0))
+        image[..., 0, t] = np.clip(img + rng.randn(X, Y) * 20.0, 0, 1000)
+    os.makedirs(d, exist_ok=True)
+    affine = np.diag([1.8, 1.8, 10.0, 1.0])
+    hdr = nifti.Nifti1Header()
+    hdr.dim[0] = 4
+    hdr.dim[1:5] = image.shape
+    hdr.pixdim[1:5] = (1.8, 1.8, 10.0, 0.04)
+    nifti.save(nifti.Nifti1Image(image, affine, hdr),
+               os.path.join(d, "ao.nii.gz"))
+    label = np.zeros_like(seg)
+    label[..., 0], label[..., T // 2] = seg[..., 0], seg[..., T // 2]
+    nifti.save(nifti.Nifti1Image(label.astype(np.float64), affine, hdr),
+               os.path.join(d, "label_ao.nii.gz"))
+    for fr, t in (("ED", 0), ("ES", T // 2)):
+        nifti.save(nifti.Nifti1Image(image[..., t], affine),
+                   os.path.join(d, f"ao_{fr}.nii.gz"))
+        nifti.save(nifti.Nifti1Image(seg[..., t].astype(np.float64), affine),
+                   os.path.join(d, f"label_ao_{fr}.nii.gz"))
+    return seg
+
+
+@pytest.mark.cuda
+def test_propagate_subject_on_card_matches_cpu(card, tmp_path):
+    """The NMI propagation on the card (both B-spline kernels in every
+    Adam step) against the port's CPU path, within the bounds the CPU
+    tests set from the JAX package's own drift (tests/
+    test_torch_propagate.py): at most 2.62 % of the voxels differ, the
+    mean per-frame Dice is at least 0.764; against the truth, the mean
+    Dice over the propagated frames is at least 0.744 and every frame's
+    AAo Dice above 0.75.  A propagation with every field zero (the
+    control) must miss the last three."""
+    from ukbb_cardiac_tpu_torch.data import propagate_aortic as prop
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
+
+    labels = {}
+    for dev in ("cpu", "cuda", "zero field"):
+        d = str(tmp_path / dev)
+        seg = _write_ao_annotated(d)
+        before = (bspline_field.launches, bspline_field.adjoint_launches)
+        if dev == "zero field":
+            real = prop.register_pairs
+            prop.register_pairs = lambda crop, pairs, cfg, device: np.zeros(
+                (len(pairs),) + crop.shape[:2] + (2,), np.float32)
+            try:
+                out = prop.propagate_subject(d, device="cpu")
+            finally:
+                prop.register_pairs = real
+        else:
+            out = prop.propagate_subject(d, device=dev)
+        launched = (bspline_field.launches - before[0],
+                    bspline_field.adjoint_launches - before[1])
+        # 100 Adam steps (forward + adjoint each) and the densify
+        assert launched == ((101, 100) if dev == "cuda" else (0, 0))
+        labels[dev] = np.asanyarray(nifti.load(out).dataobj)
+
+    def dice(a, b, k):
+        x, y = a == k, b == k
+        return 2 * np.sum(x & y) / max(np.sum(x) + np.sum(y), 1)
+
+    def missed(got, ref):
+        moving = [t for t in range(8) if t not in (0, 4)]
+        return [name for name, ok in (
+            ("disagree", np.mean(got != ref) <= 2 * 0.0131),
+            ("mean_dice", np.mean([dice(got[..., t], ref[..., t], k)
+                                   for t in range(8) for k in (1, 2)])
+             >= 1 - 2 * (1 - 0.882)),
+            ("truth_dice", np.mean([dice(got[..., t], seg[..., t], k)
+                                    for t in moving for k in (1, 2)])
+             >= 1 - 2 * (1 - 0.872)),
+            ("frame_dice", min(dice(got[..., t], seg[..., t], 1)
+                               for t in range(8)) > 0.75)) if not ok]
+
+    assert missed(labels["cuda"], labels["cpu"]) == []
+    assert {"mean_dice", "truth_dice", "frame_dice"} <= set(
+        missed(labels["zero field"], labels["cpu"]))
+
+
+@pytest.mark.cuda
+def test_aortic_train_step_on_card_matches_cpu(card):
+    """One float32 joint UNet-LSTM step (the U-Net takes gradients too)
+    from the trained ``UNet-LSTM_ao`` weights on a 9-frame window, card
+    against CPU: every gradient within 1e-3 of its tensor's largest value
+    (a random net's gradients cancel so much that float32 summation order
+    alone moved one by 3e-2 on the CPU, contiguous against channels-last:
+    trained weights, as chip_smoke.py's phase 9 uses, are the fair test),
+    the loss within 1e-5 relative."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.models.wrappers import UNetLSTM
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+
+    _, ucfg, names, params, state = store.load_model(
+        os.path.join(WEIGHTS, "UNet-LSTM_ao.npz"))
+    cfg = tao.AoTrainConfig(model="UNet-LSTM", joint_train=True)
+    cine = _ao_cine(64, 64, cfg.time_window).astype(np.float32)
+    image = (cine[:, :, 0] - cine.mean()) / cine.std()
+    label = np.where(cine[:, :, 0] > 400, 1 + (np.arange(64) >= 32)[:, None,
+                                                                     None],
+                     0)
+    batch = {"image": torch.from_numpy(
+                 np.ascontiguousarray(image.transpose(2, 0, 1))[None, ..., None]),
+             "label": torch.from_numpy(
+                 np.ascontiguousarray(label.transpose(2, 0, 1))[None])}
+    grads, losses = {}, {}
+    for dev in ("cpu", card):
+        net = UNetLSTM(convert.unet_from_jax(params, state, names, ucfg),
+                       convert.convlstm_from_jax(params, True)).to(dev)
+        loss, _ = tao.make_ao_loss(cfg, net)(
+            {k: v.to(dev) for k, v in batch.items()}, 1)
+        loss.backward()
+        losses[str(dev)] = float(loss.detach())
+        grads[str(dev)] = {k: p.grad.cpu() for k, p in
+                           net.named_parameters() if p.grad is not None}
+    assert len(grads["cuda"]) == len(grads["cpu"]) > 60
+    worst = max(float((grads["cuda"][k] - g).abs().max() / g.abs().max())
+                for k, g in grads["cpu"].items())
+    assert worst <= 1e-3, worst
+    assert abs(losses["cpu"] - losses["cuda"]) <= 1e-5 * losses["cpu"]

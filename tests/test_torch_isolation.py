@@ -82,6 +82,14 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.train.device_pool",
     "ukbb_cardiac_tpu_torch.train.sa",
     "ukbb_cardiac_tpu_torch.cli.train_network",
+    # the aortic trainer's and the propagation's
+    "ukbb_cardiac_tpu_torch.ops.sequence",
+    "ukbb_cardiac_tpu_torch.data",
+    "ukbb_cardiac_tpu_torch.data.propagate_aortic",
+    "ukbb_cardiac_tpu_torch.cli.propagate_aortic_annotation",
+    "ukbb_cardiac_tpu_torch.train.ao",
+    "ukbb_cardiac_tpu_torch.cli.train_network_ao",
+    "ukbb_cardiac_tpu_torch.infer.transfer",
 }
 
 
@@ -91,7 +99,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 49
+    assert len(walked) >= 56
     assert SLICE_MODULES <= walked, SLICE_MODULES - walked
 
 
@@ -109,3 +117,23 @@ def test_resolve_device_cpu_turns_tf32_off(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("propagate_aortic_annotation", ["--data_dir", "{d}"]),
+    ("train_network_ao", ["--dataset_dir", "{d}"]),
+    ("train_network_ao", ["--dataset_dir", "{d}", "--model", "UNet-LSTM",
+                          "--model_path", "{d}/unet.npz"]),
+    ("train_network", ["--dataset_dir", "{d}"]),
+])
+def test_cli_refuses_without_a_card(cli, argv, tmp_path, monkeypatch):
+    """Without --device cpu the CLIs raise when no card is present, before
+    they read or write anything."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"ukbb_cardiac_tpu_torch.cli.{cli}")
+    (tmp_path / "1").mkdir()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([a.format(d=tmp_path) for a in argv])
+    assert sorted(os.listdir(tmp_path)) == ["1"]

@@ -111,6 +111,28 @@ def fcn_names(cfg: FCNConfig) -> dict:
     return names
 
 
+def unet_names(cfg: UNetConfig, temporal: bool = False,
+               scope: str = "UNet") -> dict:
+    """The layer-name structure ``unet.init_unet`` builds: per level a
+    sub-scope (``conv{l}``, ``conv{l}_up``) with its own tf.layers
+    naming, the output conv under ``conv_out``."""
+    base = "conv3d" if temporal else "conv2d"
+    names = {"down": [], "up": [], "scope": scope}
+    for l in range(cfg.n_level):
+        namer = Namer()
+        names["down"].append((f"conv{l}", [
+            (namer(base), namer("batch_normalization"))
+            for _ in range(cfg.n_block[l])]))
+    for l in range(cfg.n_level - 2, -1, -1):
+        namer = Namer()
+        pairs = [(namer(base + "_transpose"), namer("batch_normalization"))]
+        pairs += [(namer(base), namer("batch_normalization"))
+                  for _ in range(cfg.n_block[l])]
+        names["up"].append((f"conv{l}_up", pairs))
+    names["out"] = ("conv_out", Namer()(base))
+    return names
+
+
 def _conv_bn(prefix: str, pair) -> Layout:
     cname, bname = pair
     return [(f"{prefix}.weight", "params", (cname, "kernel")),

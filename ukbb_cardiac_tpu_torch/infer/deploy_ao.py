@@ -15,7 +15,8 @@ Reference behaviour (file:line):
 Window modes, as in the JAX package:
 - ``window='full'`` (default, the cohort's path): the whole T-frame cine
   goes through the U-Net and the ConvLSTM scan at once, on the device from
-  the raw cine's upload to the 2-bit-packed labels' readback
+  the cine's upload (raw, or packed while the link counts as degraded:
+  ``infer/transfer.py``) to the 2-bit-packed labels' readback
   (:meth:`AorticEngine.segment_cine_dispatch`).
 - ``window='compat'``: the reference's sliding-window blending, windows
   on the device and blending on the host.
@@ -36,6 +37,7 @@ from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.ckpt.convert import (convlstm_from_jax,
                                                  unet_from_jax)
 from ukbb_cardiac_tpu_torch.ckpt.store import load_model_with_extra
+from ukbb_cardiac_tpu_torch.infer import transfer
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  PendingSegmentation,
                                                  SegmentationModel, pack_bits)
@@ -78,6 +80,9 @@ class AorticEngine:
         self.compute_dtype = compute_dtype
         self.n_class = (net.unet if kind == "unet_lstm" else net).cfg.n_class
         self._unet_engine = None
+        # the adaptive packed up-leg (infer/transfer.py)
+        self._bw = transfer.BandwidthTracker()
+        self._stats = transfer.TransferStats()
 
     @torch.inference_mode()
     def _full_prob(self, seq: torch.Tensor) -> torch.Tensor:
@@ -117,13 +122,12 @@ class AorticEngine:
         if on_card:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
-            events[0].record()
-        # the NIfTI cine is Fortran-ordered: its transpose (T, Z, Y, X) is
-        # the contiguous view, uploaded in the file's own type
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message=".*not writable")
-            raw = torch.from_numpy(np.ascontiguousarray(image.T)).to(
-                self.device)
+        # (T, Z, Y, X) in the file's own type: raw, or packed while the
+        # link counts as degraded and rebuilt exactly (infer/transfer.py);
+        # the device span starts at its upload
+        raw = transfer.upload_cine(image, self.device, self._bw,
+                                   self._stats,
+                                   start=events[0] if on_card else None)
         x = (normalise_intensity_torch(raw, 10.0) if z_score
              else rescale_intensity_torch(raw, (1.0, 99.0)))
         seq = F.pad(x.permute(1, 0, 3, 2), (y_pre, y_post, x_pre, x_post))

@@ -34,9 +34,10 @@ class UNetConfig:
 
 
 class UNet(nn.Module):
-    """Eval-mode U-Net; weights come from the JAX package's bundles through
-    :func:`ukbb_cardiac_tpu_torch.ckpt.convert.unet_from_jax`.  ``dims`` 3
-    makes it the temporal U-Net."""
+    """U-Net; weights come from the JAX package's bundles through
+    :func:`ukbb_cardiac_tpu_torch.ckpt.convert.unet_from_jax` or from
+    ``models.fcn.init_weights``.  ``dims`` 3 makes it the temporal
+    U-Net."""
 
     def __init__(self, cfg: UNetConfig, dims: int = 2):
         super().__init__()
@@ -72,36 +73,37 @@ class UNet(nn.Module):
         s = 2 if down else 1
         return s if self.dims == 2 else (1, s, s)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         """NC[D]HW image -> (float32 logits, ``conv0_up`` features in the
-        input's dtype), both NC[D]HW."""
+        input's dtype), both NC[D]HW.  ``train`` normalises with batch
+        statistics and updates the BN moving statistics in place."""
         skips = []
         for blocks in self.down:
             for block in blocks:
-                x = block(x)
+                x = block(x, train)
             skips.append(x)
         for blocks, l in zip(self.up, range(self.cfg.n_level - 2, -1, -1)):
-            x = torch.cat([skips[l], blocks[0](x)], dim=1)
+            x = torch.cat([skips[l], blocks[0](x, train)], dim=1)
             for block in blocks[1:]:
-                x = block(x)
+                x = block(x, train)
         conv = L.conv2d if self.dims == 2 else L.conv3d
         logits = conv(x, self.out_weight, bias=self.out_bias).float()
         return logits, x
 
 
 def apply_unet(model: UNet, image: torch.Tensor,
-               compute_dtype=torch.float32):
+               compute_dtype=torch.float32, train: bool = False):
     """(N, X, Y, C) image -> (logits (N, X, Y, n_class) float32, features
-    (N, X, Y, n_filter[0])), as ``unet.apply_unet`` in inference mode."""
-    logits, feats = model(nchw(image, compute_dtype))
+    (N, X, Y, n_filter[0])), as ``unet.apply_unet``."""
+    logits, feats = model(nchw(image, compute_dtype), train)
     return logits.permute(0, 2, 3, 1), feats.permute(0, 2, 3, 1)
 
 
 def apply_temporal_unet(model: UNet, image: torch.Tensor,
-                        compute_dtype=torch.float32):
+                        compute_dtype=torch.float32, train: bool = False):
     """(N, T, X, Y, C) image -> (logits (N, T, X, Y, n_class) float32,
-    features), as ``unet.apply_temporal_unet`` in inference mode."""
+    features), as ``unet.apply_temporal_unet``."""
     x = image.permute(0, 4, 1, 2, 3).to(compute_dtype).clone(
         memory_format=torch.contiguous_format)
-    logits, feats = model(x)
+    logits, feats = model(x, train)
     return logits.permute(0, 2, 3, 4, 1), feats.permute(0, 2, 3, 4, 1)

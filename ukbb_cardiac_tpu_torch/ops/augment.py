@@ -1,4 +1,5 @@
-"""Data augmentation for the SA/LA trainer: a random affine per slice.
+"""Data augmentation for the trainers: a random affine per slice (SA/LA)
+or per time window (aortic).
 
 Counterpart of ``ukbb_cardiac_tpu/ops/augment.py``.  Reference semantics:
 ``common/image_utils.py:80-120``: per slice a Gaussian shift, rotation,
@@ -15,7 +16,13 @@ random flip along one axis.
   package's CPU path).  ``augment_with_params`` is the parity seam: a
   test hands the same drawn parameters to both packages.
 
-The aortic (sequence-consistent) augmenters are not ported yet.
+The aortic (sequence-consistent) augmenters draw one transform per
+window and apply it to every frame of it (``image_utils.py:123-168``):
+:func:`aortic_data_augmenter` is the host copy, byte-identical under the
+same ``np.random.RandomState``, and :func:`aortic_batch_augmenter_torch`
+the device one, with :func:`aortic_augment_with_params` as its seam.
+As in the JAX package, the device augmenter draws one flip direction per
+window where the host twin keeps the reference's per-frame redraw.
 """
 
 from __future__ import annotations
@@ -140,3 +147,65 @@ def data_augmenter_torch(generator: torch.Generator, image: torch.Tensor,
     params = sample_params(generator, image.shape[0], shift, rotate, scale,
                            intensity, device=image.device)
     return augment_with_params(image, label, params, flip)
+
+
+def aortic_data_augmenter(image, label, shift, rotate, scale, intensity,
+                          flip, rng=None):
+    """Host twin of the sequence-consistent augmenter
+    (``image_utils.py:123-168``): one transform shared by all N frames of
+    a window.  image (N, X, Y, C), label (N, X, Y)."""
+    rng = np.random if rng is None else rng
+    image = np.asarray(image)
+    label = np.asarray(label)
+    image2 = np.zeros(image.shape, dtype=np.float32)
+    label2 = np.zeros(label.shape, dtype=np.int32)
+    shift_val = [np.clip(rng.normal(), -3, 3) * shift,
+                 np.clip(rng.normal(), -3, 3) * shift]
+    rotate_val = np.clip(rng.normal(), -3, 3) * rotate
+    scale_val = 1 + np.clip(rng.normal(), -3, 3) * scale
+    intensity_val = 1 + np.clip(rng.normal(), -3, 3) * intensity
+
+    row, col = image.shape[1:3]
+    M = _rotation_matrix((row / 2, col / 2), rotate_val, 1.0 / scale_val)
+    M[:, 2] += shift_val
+    for i in range(image.shape[0]):
+        for c in range(image.shape[3]):
+            image2[i, :, :, c] = ndimage.affine_transform(
+                image[i, :, :, c], M[:, :2], M[:, 2], order=1)
+        label2[i, :, :] = ndimage.affine_transform(label[i, :, :], M[:, :2],
+                                                   M[:, 2], order=0)
+        image2[i] *= intensity_val
+        if flip:
+            if rng.uniform() >= 0.5:
+                image2[i] = image2[i, ::-1, :, :]
+                label2[i] = label2[i, ::-1, :]
+            else:
+                image2[i] = image2[i, :, ::-1, :]
+                label2[i] = label2[i, :, ::-1]
+    return image2, label2
+
+
+def aortic_augment_with_params(images: torch.Tensor, labels: torch.Tensor,
+                               params, flip: bool):
+    """Apply one drawn transform per window (:func:`sample_params` over
+    the B windows) to every frame of it.  images (B, T, X, Y, C), labels
+    (B, T, X, Y) -> (float32 images, int32 labels) of the same shapes."""
+    B, T = images.shape[:2]
+    per_frame = {k: v.repeat_interleave(T, dim=0) for k, v in params.items()}
+    img, lab = augment_with_params(images.flatten(0, 1),
+                                   labels.flatten(0, 1), per_frame, flip)
+    return img.view(images.shape), lab.view(labels.shape)
+
+
+def aortic_batch_augmenter_torch(generator: torch.Generator,
+                                 images: torch.Tensor, labels: torch.Tensor,
+                                 shift, rotate, scale, intensity,
+                                 flip: bool):
+    """Device augmenter for a batch of windows (B, T, X, Y, C) / (B, T, X,
+    Y): an independent window-consistent transform per window, drawn from
+    ``generator`` (on the images' device) — the twin of drawing
+    :func:`aortic_data_augmenter` once per window in the host sampler
+    (``train_network_ao.py:190-196``)."""
+    params = sample_params(generator, images.shape[0], shift, rotate, scale,
+                           intensity, device=images.device)
+    return aortic_augment_with_params(images, labels, params, flip)

@@ -1,12 +1,14 @@
-"""Device-resident slice pool: train on slices gathered on the card.
+"""Device-resident pool: train on slices or time windows gathered on the
+card.
 
-Counterpart of ``ukbb_cardiac_tpu/train/device_pool.py`` (the SA slice
-path; the aortic trainer's window variants are not ported yet).  Each
-subject-frame volume goes to the device once, into a fixed slot of one
-(n_slots, z_max, X, Y) float16 image pool and one uint8 label pool; a
-train step gathers its (slot, z) index pairs from the pool, so the
-steady-state host-to-device traffic is 8 bytes per slice instead of a
-slice's pixels.
+Counterpart of ``ukbb_cardiac_tpu/train/device_pool.py``.  Each
+subject-frame volume (SA trainer) or normalised cine (aortic trainer)
+goes to the device once, into a fixed slot of one (n_slots, t_max, X, Y)
+float16 image pool and one uint8 label pool; a train step gathers its
+(slot, z) index pairs or (slot, window frames, label frames) tuples from
+the pool, so the steady-state host-to-device traffic is a few bytes of
+indices per slice or window instead of its pixels.  Data-parallel pool
+steps over several cards are not ported (ROADMAP A14).
 
 Ordering, without the JAX design's copy-on-upload (JAX needed a fresh
 pool array per upload because donating the pool would invalidate the
@@ -131,9 +133,9 @@ class DeviceCinePool:
                 if slot is None:
                     raise RuntimeError(
                         "DeviceCinePool: every slot is pinned by queued "
-                        "slices — the pool cannot hold one dispatch "
+                        "batches — the pool cannot hold one dispatch "
                         "chunk's working set.  Increase pool_gb, or "
-                        "reduce batch_slices/steps_per_dispatch.")
+                        "reduce the batch size or steps_per_dispatch.")
             self._upload(slot, img, lab)
             self._slot_of[key] = slot
             self._key_of[slot] = key
@@ -148,6 +150,35 @@ def _gather_slices(flat_img, flat_lab, ib, t_max):
     return {"image": flat_img[fi][..., None], "label": flat_lab[fi]}
 
 
+def _gather_windows(flat_img, flat_lab, ib, t_max):
+    """(slot, tidx, lidx) of leading shape S -> {"image": S + (TW, X, Y,
+    1) f16, "label": S + (TW, X, Y) uint8}.  ``tidx`` are the circular
+    window frames, ``lidx`` the label frames: the window itself when a
+    densely propagated label exists, the annotated centre repeated
+    otherwise (``train_network_ao.py:181-187``)."""
+    base = ib["slot"].long()[..., None] * t_max
+    return {"image": flat_img[base + ib["tidx"].long()][..., None],
+            "label": flat_lab[base + ib["lidx"].long()]}
+
+
+def _make_pool_multi_step(loss_fn, optimizer, gather):
+    """The one K-step body both pool steps share: flatten the pool,
+    ``gather`` the K batches from it by index and run
+    ``steps.make_multi_train_step`` on them.  The slice and window
+    variants differ only in the gather."""
+    from ukbb_cardiac_tpu_torch.train.steps import make_multi_train_step
+
+    multi = make_multi_train_step(loss_fn, optimizer)
+
+    def multi_step(pool_img, pool_lab, batches, seeds):
+        n_slots, t_max = pool_img.shape[:2]
+        flat_img = pool_img.reshape((n_slots * t_max,) + pool_img.shape[2:])
+        flat_lab = pool_lab.reshape((n_slots * t_max,) + pool_lab.shape[2:])
+        return multi(gather(flat_img, flat_lab, batches, t_max), seeds)
+
+    return multi_step
+
+
 def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     """K steps per call whose batches are (slot, z) index pairs gathered
     from the pool on the device.
@@ -160,15 +191,18 @@ def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     reused unchanged.  Returns ``step(pool_img, pool_lab, batches, seeds)
     -> (losses[K], last_aux)``; release the batches' pins only after this
     returns."""
-    from ukbb_cardiac_tpu_torch.train.steps import make_multi_train_step
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices)
 
-    multi = make_multi_train_step(loss_fn, optimizer)
 
-    def multi_step(pool_img, pool_lab, batches, seeds):
-        n_slots, t_max = pool_img.shape[:2]
-        flat_img = pool_img.reshape((n_slots * t_max,) + pool_img.shape[2:])
-        flat_lab = pool_lab.reshape((n_slots * t_max,) + pool_lab.shape[2:])
-        return multi(_gather_slices(flat_img, flat_lab, batches, t_max),
-                     seeds)
+def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
+    """K steps per call whose batches are (slot, frame-index) tuples
+    gathered from the pool on the device — the aortic twin of
+    :func:`make_pool_slice_multi_step`.
 
-    return multi_step
+    ``batches``: {"slot": (K, B) int32, "tidx": (K, B, TW) int32,
+    "lidx": (K, B, TW) int32} (see :func:`_gather_windows`).  The gather
+    builds the exact {"image": (K, B, TW, X, Y, 1) f16, "label": (K, B,
+    TW, X, Y) uint8} batches the host window samplers would have shipped
+    with ``compact_transfer``, so ``loss_fn`` (``train.ao.make_ao_loss``)
+    is reused unchanged."""
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows)

@@ -5,13 +5,15 @@ sampler (NIfTI reads, crop, rescale, host augmentation) runs in a worker
 thread with a bounded queue, so batch preparation overlaps the device
 steps (numpy, scipy and zlib release the GIL).  The chunk builders cut
 the K-step chunks at the validation, checkpoint and progress boundaries
-and stage the next chunk on the device while the current one runs.
+and stage the next chunk on the device while the current one runs;
+:func:`run_chunks` is the trainers' timed step loop over those chunks.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -166,3 +168,70 @@ def make_pool_chunk_builder(prefetcher: BatchPrefetcher, pool, K: int,
         return k_now, (pool_img, pool_lab, batches), seeds, release
 
     return build_input
+
+
+def run_chunks(build_input, step: Callable, multi_step: Callable,
+               pooled: bool, start: int, total: int,
+               cadences: Sequence[int], device, side_work: Callable) -> dict:
+    """The trainers' step loop: run the chunks that ``build_input`` (one
+    of the builders above) stages, from iteration ``start`` to ``total``,
+    and after each call ``side_work(iteration, loss, aux, t0, k_now)``
+    (validation, progress, checkpoints; ``t0`` the chunk's start time).
+    Pool chunks go to ``multi_step(pool_img, pool_lab, batches, seeds)``;
+    other chunks to ``multi_step(batches, seeds)`` when ``k_now > 1``,
+    else to ``step(batch, seed)``.
+
+    Returns stats: iterations run, and from the end of the first call on
+    (cuDNN's autotuning excluded) the step loop's seconds with the side
+    work set aside, the seconds it waited for the next chunk, and the
+    steps it ran.  Before side work at a cadence boundary the card is
+    synchronised, so the queued steps finish inside the loop's window,
+    not in the side work's host sync."""
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    stats = {"iterations": 0, "steady_iterations": 0, "steady_s": 0.0,
+             "wait_s": 0.0}
+    t_aside = 0.0  # side-work seconds inside the window
+    t_steady = None
+    iteration = start
+    # a resume at/past total must not sample a never-used batch
+    pending = build_input(iteration) if iteration < total else None
+    while iteration < total:
+        t0 = time.time()
+        k_now, batches, seeds, release = pending
+        if pooled:
+            losses_k, aux = multi_step(*batches, seeds)
+        elif k_now > 1:
+            losses_k, aux = multi_step(batches, seeds)
+        else:
+            loss, aux = step(batches, seeds[0])
+            losses_k = loss[None]
+        release()
+        iteration += k_now
+        stats["iterations"] += k_now
+        if t_steady is None:
+            sync()  # the first call (cuDNN autotuning) is not timed
+            t_steady = time.time()
+        else:
+            stats["steady_iterations"] += k_now
+        if iteration < total:
+            t_wait = time.time()
+            pending = build_input(iteration)
+            if stats["steady_iterations"]:
+                stats["wait_s"] += time.time() - t_wait
+        side = (iteration == total
+                or any(c and iteration % c == 0 for c in cadences))
+        if side and stats["steady_iterations"]:
+            sync()
+        t_side = time.time()
+        side_work(iteration, losses_k[-1], aux, t0, k_now)
+        if stats["steady_iterations"]:
+            t_aside += time.time() - t_side
+    sync()
+    if t_steady is not None:
+        stats["steady_s"] = time.time() - t_steady - t_aside
+    return stats

@@ -493,7 +493,7 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
     if cfg.device_slices:
         from ukbb_cardiac_tpu_torch.train.device_pool import \
             make_pool_slice_multi_step
-        multi_step = make_pool_slice_multi_step(loss_fn, optimizer)
+        step, multi_step = None, make_pool_slice_multi_step(loss_fn, optimizer)
     else:
         step = steps_lib.make_train_step(loss_fn, optimizer)
         multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
@@ -513,7 +513,7 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
     from ukbb_cardiac_tpu_torch.train.prefetch import (BatchPrefetcher,
                                                        make_chunk_builder,
                                                        make_pool_chunk_builder,
-                                                       make_stage)
+                                                       make_stage, run_chunks)
 
     cache = (SubjectCache(int(cfg.cache_gb * (1 << 30)))
              if cfg.cache_gb > 0 else None)
@@ -555,87 +555,41 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
         build_input = make_chunk_builder(prefetcher, K, total, cadences,
                                          stage)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    def side_work(iteration, loss, aux, t0, k_now):
+        if iteration % cfg.validation_every == 0 and \
+                data_list["validation"]:
+            v_images, v_labels = get_random_batch(
+                data_list["validation"], cfg.validation_batch_size,
+                image_size=cfg.image_size, rng=val_rng, cache=cache)
+            v_pred = validation_predict(net, v_images, device)
+            rec = {"iteration": iteration, "loss": float(loss),
+                   "accuracy": float(aux["accuracy"]),
+                   "val_accuracy": float(np.mean(v_pred == v_labels)),
+                   # per iteration, whatever K the call ran
+                   "seconds": (time.time() - t0) / k_now}
+            for k in range(1, cfg.n_class):
+                a, b = v_pred == k, v_labels == k
+                rec[f"val_dice_{k}"] = float(
+                    2 * np.sum(a & b) / max(np.sum(a) + np.sum(b), 1e-7))
+            log_f.write(json.dumps(rec) + "\n")
+            log_f.flush()
 
-    stats = {"iterations": 0, "steady_iterations": 0, "steady_s": 0.0,
-             "wait_s": 0.0}
-    t_aside = 0.0  # validation and checkpoint seconds inside the window
-    t_steady = None
-    iteration = start_iteration
+        if iteration % progress_every == 0:
+            print(f"Iteration {iteration}/{total}: loss = "
+                  f"{float(loss):.4f}, {(time.time() - t0) / k_now:.3f}"
+                  "s/iter")
+
+        if iteration % cfg.checkpoint_every == 0 or iteration == total:
+            save_checkpoint(os.path.join(model_dir,
+                                         f"model-{iteration}.npz"),
+                            net, names, optimizer, layout,
+                            {"iteration": iteration,
+                             "seq_name": cfg.seq_name})
+
     try:
-        # a resume at/past total must not sample a never-used batch
-        pending = build_input(iteration) if iteration < total else None
-        while iteration < total:
-            t0 = time.time()
-            k_now, batches, seeds, release = pending
-            if cfg.device_slices:
-                pool_img, pool_lab, idx = batches
-                losses_k, aux = multi_step(pool_img, pool_lab, idx, seeds)
-            elif k_now > 1:
-                losses_k, aux = multi_step(batches, seeds)
-            else:
-                loss, aux = step(batches, seeds[0])
-                losses_k = loss[None]
-            release()
-            loss = losses_k[-1]
-            iteration += k_now
-            stats["iterations"] += k_now
-            if t_steady is None:
-                sync()  # the first call (cuDNN autotuning) is not timed
-                t_steady = time.time()
-            else:
-                stats["steady_iterations"] += k_now
-            if iteration < total:
-                t_wait = time.time()
-                pending = build_input(iteration)
-                if stats["steady_iterations"]:
-                    stats["wait_s"] += time.time() - t_wait
-
-            side = (iteration % cfg.validation_every == 0
-                    or iteration % progress_every == 0
-                    or iteration % cfg.checkpoint_every == 0
-                    or iteration == total)
-            if side and stats["steady_iterations"]:
-                # the queued steps finish inside the step loop's window,
-                # not in the side work's host sync set aside below
-                sync()
-            t_side = time.time()
-            if iteration % cfg.validation_every == 0 and \
-                    data_list["validation"]:
-                v_images, v_labels = get_random_batch(
-                    data_list["validation"], cfg.validation_batch_size,
-                    image_size=cfg.image_size, rng=val_rng, cache=cache)
-                v_pred = validation_predict(net, v_images, device)
-                rec = {"iteration": iteration, "loss": float(loss),
-                       "accuracy": float(aux["accuracy"]),
-                       "val_accuracy": float(np.mean(v_pred == v_labels)),
-                       # per iteration, whatever K the call ran
-                       "seconds": (time.time() - t0) / k_now}
-                for k in range(1, cfg.n_class):
-                    a, b = v_pred == k, v_labels == k
-                    rec[f"val_dice_{k}"] = float(
-                        2 * np.sum(a & b) / max(np.sum(a) + np.sum(b), 1e-7))
-                log_f.write(json.dumps(rec) + "\n")
-                log_f.flush()
-
-            if iteration % progress_every == 0:
-                print(f"Iteration {iteration}/{total}: loss = "
-                      f"{float(loss):.4f}, {(time.time() - t0) / k_now:.3f}"
-                      "s/iter")
-
-            if iteration % cfg.checkpoint_every == 0 or iteration == total:
-                save_checkpoint(os.path.join(model_dir,
-                                             f"model-{iteration}.npz"),
-                                net, names, optimizer, layout,
-                                {"iteration": iteration,
-                                 "seq_name": cfg.seq_name})
-            if stats["steady_iterations"]:
-                t_aside += time.time() - t_side
-        sync()
-        if t_steady is not None:
-            stats["steady_s"] = time.time() - t_steady - t_aside
+        stats = run_chunks(build_input, step, multi_step, cfg.device_slices,
+                           start_iteration, total, cadences, device,
+                           side_work)
     finally:
         prefetcher.close()
         log_f.close()
