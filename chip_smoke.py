@@ -7,7 +7,7 @@
    time and the compiler's register / spill lines;
 2. holds each kernel against its plain PyTorch version at the main path's
    shapes and times the kernel, the plain version and a library yardstick
-   with CUDA events:
+   with CUDA events (and prints the B-spline forward's sha256 at each):
    - the fused FCN head on a 64-slice chunk of 192x208 features from the
      trained ``FCN_sa`` encoder, float32 and bfloat16, with its nvcc time
      and registers, its tensor-core (3xTF32) bound beside the float32
@@ -86,10 +86,27 @@
    card and CPU gradients agree and the trained bundle's card and CPU
    deploys agree; last, one packed SA and one packed aortic dispatch
    against the raw path's labels, with the bytes each ships;
-10. prints the card's name and power limit, one JSON line of kernel
-   figures (the head's launches from the 1-worker cohort run, the
-   B-spline kernels' from the propagation, with their times at its
-   shape), and, last, ``{"ok": true, "device": {...}}``.
+10. ingestion: writes the cohort's 3 subjects as UK Biobank application
+   zips of DICOMs with the port's writer (SA slices, LA 2/3/4-chamber,
+   aortic; subject 0 with one SOF3, one JPEG-LS and one RLE series, the
+   Python encoders run in a pool of processes while the uncompressed
+   files are written; the seconds of each part), prints the native and
+   Python decode rates, converts the zips with ``cli.convert_data``
+   (seconds per subject), holds the converted voxels to the cines and
+   the affines to the headers written, and runs ``cli.run_cohort`` in
+   full mode with 1 worker on the converted tree: every subject and
+   table, the kernels' launches, SA Dice >= 0.9 against the truth;
+11. prints the card's name and power limit, one JSON line of kernel
+   figures (the head's launches from the 1-worker cohort run and from
+   the ingestion phase's, the B-spline kernels' likewise and from the
+   propagation, with their times at its shape), and, last, ``{"ok":
+   true, "device": {...}}``.
+
+``python3 chip_smoke.py --forward_vs <tree>`` instead builds the B-spline
+forward of another checkout ``<tree>`` (an earlier design, C interface
+``B, Cx, Cy, X, Y, spacing, table, control, field, stream``) and holds
+this tree's forward against it: sha256 of both at every phase-2 case,
+and times in turns.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card (``torch.cuda.is_available()`` false) it exits 1 at once.  The
@@ -100,6 +117,9 @@ the kernels' test inputs come from fixed seeds.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
 import json
 import math
 import os
@@ -140,6 +160,11 @@ BSPLINE_CASES = [
     (N_LA_PAIRS, 32, 7, 10), (N_LA_PAIRS, 64, 10, 10),
     (N_LA_PAIRS, LA_BUCKET, 16, 10), (N_LA_PAIRS, 64, 7, 20),
     (N_LA_PAIRS, LA_BUCKET, 7, 40), (N_LA_PAIRS, LA_BUCKET, 10, 20)]
+# a shape with odd X*Y: whether a row's column pairs are 16-byte aligned
+# flips from row to row and from pair to pair, so the forward's unaligned
+# path (two 8-byte stores) runs at both row parities of every pair (the
+# propagation's 100 x 57 has odd Y, but even X*Y)
+VECTOR_CASE = (7, (23, 31), (8, 9), 5)
 # card vs CPU strain on a reduced subject: the bounds the CPU parity tests
 # hold the port to against the JAX package (tests/test_torch_strain.py)
 STRAIN_SEGMENT_ATOL, STRAIN_GLOBAL_ATOL, DICE_ATOL = 2.0, 0.5, 0.005
@@ -162,6 +187,35 @@ AO_BUNDLE = os.path.join(WEIGHTS, "UNet-LSTM_ao.npz")
 AO_SHAPE = (240, 196, 1, 100)
 AFFINE_AO = np.diag([-1.8, -1.8, 10.0, 1.0])
 AREA_RTOL = 1e-6
+COHORT_AFFINES = {"sa": AFFINE_SA, "la_4ch": AFFINE_LA, "la_2ch": AFFINE_LA,
+                  "ao": AFFINE_AO}
+# the ingestion phase: write_cohort's subjects as UK Biobank application
+# zips (<eid>.zip, a folder of DICOMs per series: the SA slices, the LA 2-,
+# 3- and 4-chamber views, the aortic series; the 3-chamber view carries the
+# 2-chamber cine), converted by cli.convert_data, then cli.run_cohort in
+# full mode with 1 worker on the converted tree.  Subject 0 carries one
+# series in each compressed syntax: SOF3 JPEG lossless, JPEG-LS and RLE
+# (encoded by the port's Python encoders in a pool of processes); the rest
+# is explicit VR little endian.  Geometry: the DICOM headers that the
+# conversion (LPS to RAS) turns into COHORT_AFFINES
+INGEST_EID0 = 5000000
+SOF3, JPEG_LS, RLE = ("1.2.840.10008.1.2.4.70", "1.2.840.10008.1.2.4.80",
+                      "1.2.840.10008.1.2.5")
+EXPLICIT_LE = "1.2.840.10008.1.2.1"
+INGEST_COMPRESSED = {"CINE_segmented_LAX_2Ch": SOF3,
+                     "CINE_segmented_LAX_4Ch": JPEG_LS,
+                     "CINE_segmented_SAX_b2": RLE}
+# (cine, image orientation (LPS), position of slice 0 (LPS)) per series
+INGEST_GEOMETRY = {
+    "sa": ("sa", (1, 0, 0, 0, 1, 0), (-80.0, -90.0, -40.0)),
+    "la_2ch": ("la_2ch", (1, 0, 0, 0, 0, -1), (-80.0, 0.0, 90.0)),
+    "la_3ch": ("la_2ch", (1, 0, 0, 0, 0, -1), (-80.0, 0.0, 90.0)),
+    "la_4ch": ("la_4ch", (1, 0, 0, 0, 0, -1), (-80.0, 0.0, 90.0)),
+    "ao": ("ao", (1, 0, 0, 0, 1, 0), (0.0, 0.0, 0.0))}
+INGEST_FOLDERS = {"la_2ch": "CINE_segmented_LAX_2Ch",
+                  "la_3ch": "CINE_segmented_LAX_3Ch",
+                  "la_4ch": "CINE_segmented_LAX_4Ch",
+                  "ao": "CINE_segmented_Ao_dist"}
 # the training phase: the released FCN_sa architecture (5 levels, filters
 # 16-256, 4 classes) on 192^2 crops of phantom ED/ES pairs; each
 # profile's iterations (production: batches of 128 slices, 10 steps per
@@ -438,32 +492,48 @@ def write_cohort(data_dir, nifti, T):
     int16, world-consistent SA and LA affines; and the pressure CSV (two
     header rows, Vicorder fields 12678-2.0/2.1).  Returns
     {subject: {"la_2ch", "la_4ch", "seg4", "ao": truth labels}}."""
-    X, Y, Z = MAIN_SHAPE[:3]
     truth = {}
     for i in range(N_SUBJECTS):
-        rng = np.random.RandomState(20 + i)
         subject = f"{2000000 + i}"
         d = os.path.join(data_dir, subject)
         os.makedirs(d)
-        sa, _ = sax_phantom(X, Y, Z, T, r_lv=30.0, wall=10.0, rng=rng)
-        la4, seg4 = seg4_la_phantom(X, Y, T, zoom=2.0, rng=rng)
-        la2, seg2 = la_phantom(X, Y, T, r_la=20.0, rng=rng)
-        save_nifti(nifti, os.path.join(d, "sa.nii.gz"), sa, AFFINE_SA)
-        save_nifti(nifti, os.path.join(d, "la_4ch.nii.gz"), la4, AFFINE_LA)
-        save_nifti(nifti, os.path.join(d, "la_2ch.nii.gz"), la2, AFFINE_LA)
-        ao, seg_ao = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0,
-                                r_da=12.0, rng=rng)
-        save_nifti(nifti, os.path.join(d, "ao.nii.gz"), ao, AFFINE_AO)
-        seg_la4 = np.zeros_like(seg4)
-        seg_la4[seg4 == 4], seg_la4[seg4 == 5] = 1, 2
-        truth[subject] = {"la_2ch": seg2, "la_4ch": seg_la4, "seg4": seg4,
-                          "ao": seg_ao}
-    with open(os.path.join(os.path.dirname(data_dir), "bp.csv"), "w") as f:
+        cines, truth[subject] = cohort_subject(i, T)
+        for seq, cine in cines.items():
+            save_nifti(nifti, os.path.join(d, f"{seq}.nii.gz"), cine,
+                       COHORT_AFFINES[seq])
+    write_pressures(os.path.join(os.path.dirname(data_dir), "bp.csv"),
+                    sorted(truth))
+    return truth
+
+
+@functools.lru_cache(maxsize=None)
+def cohort_subject(i, T):
+    """The cines of :func:`write_cohort`'s subject ``i`` ({"sa", "la_4ch",
+    "la_2ch", "ao"}: int16) and their truth labels ({"sa", "la_2ch",
+    "la_4ch", "seg4", "ao"}).  Kept for the ingestion phase, which writes
+    the same subjects again; read-only."""
+    X, Y, Z = MAIN_SHAPE[:3]
+    rng = np.random.RandomState(20 + i)
+    sa, seg_sa = sax_phantom(X, Y, Z, T, r_lv=30.0, wall=10.0, rng=rng)
+    la4, seg4 = seg4_la_phantom(X, Y, T, zoom=2.0, rng=rng)
+    la2, seg2 = la_phantom(X, Y, T, r_la=20.0, rng=rng)
+    ao, seg_ao = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0, r_da=12.0,
+                            rng=rng)
+    seg_la4 = np.zeros_like(seg4)
+    seg_la4[seg4 == 4], seg_la4[seg4 == 5] = 1, 2
+    return ({"sa": sa, "la_4ch": la4, "la_2ch": la2, "ao": ao},
+            {"sa": seg_sa, "la_2ch": seg2, "la_4ch": seg_la4, "seg4": seg4,
+             "ao": seg_ao})
+
+
+def write_pressures(path, subjects):
+    """The pressure CSV of the aortic stage: two header rows, Vicorder
+    fields 12678-2.0/2.1."""
+    with open(path, "w") as f:
         f.write(f"eid,{PULSE_PRESSURE},{PULSE_PRESSURE}\n"
                 ",12678-2.0,12678-2.1\n")
-        for i, subject in enumerate(sorted(truth)):
+        for i, subject in enumerate(subjects):
             f.write(f"{subject},{40 + 2 * i},{42 + 2 * i}\n")
-    return truth
 
 
 def write_ao_annotated(d, nifti, T, seed):
@@ -548,7 +618,7 @@ def idle_propagation(prop, nifti, d, T, seed):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/10] build", flush=True)
+    print("[1/11] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -635,7 +705,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/10] fused head vs its plain version at the main path's shapes",
+    print("[2/11] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -679,7 +749,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/10] fused head with the LA bundles vs its plain version at "
+    print(f"[2/11] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -738,25 +808,45 @@ def bspline_bounds(B, C, X, s):
     return out
 
 
+def forward_shapes() -> dict:
+    """The B-spline cases at the finest level of the SA and LA strain
+    paths and the propagation's, by name."""
+    return {"sa": (N_PAIRS, (96, 96), (13, 13), 10),
+            "la": (N_LA_PAIRS, (LA_BUCKET, LA_BUCKET), (16, 16), 10),
+            "propagation": propagation_case()}
+
+
+def bspline_cases():
+    """Every B-spline case of phase 2, (pairs, (X, Y), (Cx, Cy), spacing),
+    with its seeded lattices and cotangents (numpy, float32), in order."""
+    cases = [(B, (X, X), (C, C), s) for B, X, C, s in BSPLINE_CASES]
+    cases += [propagation_case(), VECTOR_CASE]
+    rng = np.random.RandomState(11)
+    for case in cases:
+        B, (X, Y), (Cx, Cy), _ = case
+        c = rng.randn(B, Cx, Cy, 2).astype(np.float32)
+        yield case, c, rng.randn(B, X, Y, 2).astype(np.float32)
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
 def bspline_phase(card, tb, bf):
     """The B-spline kernels against their plain versions at every shape of
-    the strain path and at the aortic propagation's.  Returns the times at
-    the SA strain path's finest level (the kernels line's, as through
-    earlier slices) and at the propagation's shape."""
+    the strain path and at the aortic propagation's, and at VECTOR_CASE
+    (the forward's unaligned stores at both row parities); the sha256 of
+    the forward's output at each.  Returns the times at the SA strain path's finest level (the
+    kernels line's, as through earlier slices), the LA path's and the
+    propagation's."""
     import torch.nn.functional as F
 
-    print("[2/10] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/11] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
-    rng = np.random.RandomState(11)
     result = {}
-    sa_case = (N_PAIRS, (96, 96), (13, 13), 10)
-    cases = [(B, (X, X), (C, C), s) for B, X, C, s in BSPLINE_CASES]
-    cases.append(propagation_case())
-    for B, (X, Y), (Cx, Cy), s in cases:
-        c = torch.from_numpy(rng.randn(B, Cx, Cy, 2).astype(
-            np.float32)).cuda()
-        G = torch.from_numpy(rng.randn(B, X, Y, 2).astype(
-            np.float32)).cuda()
+    for case, c, G in bspline_cases():
+        B, (X, Y), (Cx, Cy), s = case
+        c, G = torch.from_numpy(c).cuda(), torch.from_numpy(G).cuda()
         cr = c.clone().requires_grad_(True)
         field = bf.bspline_field(cr, (X, Y), s)
         field.backward(G)
@@ -821,17 +911,80 @@ def bspline_phase(card, tb, bf):
                   f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}) "
                   f"[{card}]")
         print(f"  yardstick vs plain: conv_transpose2d {lib_err.item():.3e}, "
-              f"conv2d {lib_err_adj.item():.3e}")
-        if (B, (X, Y), (Cx, Cy), s) == sa_case:
-            result["sa"] = times
-        if (B, (X, Y), (Cx, Cy), s) == cases[-1]:
-            result["propagation"] = dict(times, shape=[B, X, Y, Cx, Cy, s])
+              f"conv2d {lib_err_adj.item():.3e}; forward plan (rows, threads) "
+              f"{bf.field_plan((X, Y), s)}, sha256 "
+              f"{sha256(field)}")
+        for key, ref in forward_shapes().items():
+            if case == ref:
+                result[key] = dict(times, shape=[B, X, Y, Cx, Cy, s])
     return result
+
+
+def forward_vs_earlier(card, kernels, bf, tree):
+    """The forward against an earlier design of it: builds ``tree``'s
+    ``ukbb_cardiac_tpu_torch/csrc/bspline_field.cu`` (C interface ``B, Cx,
+    Cy, X, Y, spacing, table, control, field, stream``), prints the sha256
+    of both outputs on phase 2's inputs at every case, fails unless this
+    tree's forward is within FIELD_ATOL of its plain version, and times
+    both (graph replay) in turns, earlier / this / this / earlier, at the
+    SA, LA and propagation shapes."""
+    from ukbb_cardiac_tpu_torch.reg import bspline as tb
+
+    print(f"[forward] this tree's B-spline forward against {tree}'s",
+          flush=True)
+    for line in kernels.build(["bspline_field"])["bspline_field"].ptxas:
+        print(f"    {line}")
+    src = os.path.join(tree, "ukbb_cardiac_tpu_torch", "csrc",
+                       "bspline_field.cu")
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = kernels.BUILD_DIR / "libbspline_field_earlier.so"
+    t0 = time.perf_counter()
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                    str(lib_path), src], check=True)
+    print(f"  earlier kernel built in {time.perf_counter() - t0:.2f} s")
+    fn = ctypes.CDLL(str(lib_path)).ukbb_bspline_field
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+    timed = {v: k for k, v in forward_shapes().items()}
+    same = True
+    for case, c, _ in bspline_cases():
+        B, (X, Y), (Cx, Cy), s = case
+        c = torch.from_numpy(c).cuda()
+        table = bf.weight_table(s, c.device)
+
+        def earlier():
+            out = torch.empty((B, X, Y, 2), device=c.device)
+            rc = fn(B, Cx, Cy, X, Y, s, table.data_ptr(), c.data_ptr(),
+                    out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"earlier field kernel: CUDA error {rc}")
+            return out
+
+        def this():
+            return bf.bspline_field(c, (X, Y), s)
+
+        a, b = earlier(), this()
+        torch.cuda.synchronize()
+        err = (b - tb.bspline_dense_field_plain(c, (X, Y), s)).abs().max()
+        equal = torch.equal(a, b)
+        same &= equal
+        print(f"  B={B} {X}x{Y} lattice {Cx}x{Cy} s={s}: sha256 earlier "
+              f"{sha256(a)}, this {sha256(b)}; bitwise equal {equal}; max "
+              f"|this - plain| {err.item():.3e}")
+        if not err.item() <= FIELD_ATOL:
+            raise AssertionError(f"forward at {case}: {err.item()} from its "
+                                 f"plain version (atol {FIELD_ATOL})")
+        if case in timed:
+            ms = [graph_ms(f) for f in (earlier, this, this, earlier)]
+            print(f"  {timed[case]} times (graph replay, ms): earlier "
+                  f"{ms[0]:.5f}, this {ms[1]:.5f}, this {ms[2]:.5f}, earlier "
+                  f"{ms[3]:.5f} [{card}]")
+    print(f"  every case bitwise equal: {same}")
 
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/10] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/11] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -919,7 +1072,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/10] main path: wall thickness + SA strain "
+    print(f"[4/11] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -1126,7 +1279,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/10] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/11] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1364,7 +1517,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/10] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/11] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1505,7 +1658,7 @@ def train_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import sa as tsa
 
-    print(f"[7/10] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+    print(f"[7/11] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
           f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
           flush=True)
     data = os.path.join(work, "train_set")
@@ -1731,7 +1884,7 @@ def resnet_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 
-    print("[8/10] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+    print("[8/11] ResNet-FCN deploy: seeded init at the FCN_sa widths",
           flush=True)
     cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
                             n_filter=(16, 32, 64, 128, 256),
@@ -1791,7 +1944,7 @@ def propagation_phase(card, work, bf):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     B, crop_shape, lattice, spacing = propagation_case()
-    print(f"[9/10] aortic labels propagated (RegConfig.aortic_motion(): 1 "
+    print(f"[9/11] aortic labels propagated (RegConfig.aortic_motion(): 1 "
           f"level, 100 Adam steps, NMI) on {AO_TRAIN_SUBJECTS} {AO_SHAPE} "
           f"int16 cines annotated at frames {AO_ANNOTATED}", flush=True)
     root = os.path.join(work, "ao_train")
@@ -1929,7 +2082,7 @@ def ao_train_phase(card, root, truth, work):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import ao as tao
 
-    print(f"[9/10] aortic trainer on the propagated labels: U-Net 16-256, "
+    print(f"[9/11] aortic trainer on the propagated labels: U-Net 16-256, "
           f"5 levels, BiConvLSTM 16 hidden, {AO_SIZE_TRAIN}^2 crops",
           flush=True)
     # one validation subject with its true labels
@@ -2065,7 +2218,7 @@ def packed_phase(card, engine_mod, deploy):
     from ukbb_cardiac_tpu_torch.infer import transfer
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 
-    print("[9/10] the packed up-leg: one SA and one aortic cine, packed and "
+    print("[9/11] the packed up-leg: one SA and one aortic cine, packed and "
           "raw", flush=True)
     sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
                         wall=0.039 * MAIN_SHAPE[0],
@@ -2111,6 +2264,282 @@ def packed_phase(card, engine_mod, deploy):
                                  f"nothing was packed")
 
 
+def _write_dicom(job):
+    """One DICOM file (a process-pool task: the Python encoders)."""
+    from ukbb_cardiac_tpu_torch.data.dicom import dcmwrite_minimal
+
+    path, attrs, pixel, syntax = job
+    dcmwrite_minimal(path, attrs, pixel, transfer_syntax=syntax)
+    return path
+
+
+def dicom_affine(orientation, position, next_position, spacing, dz):
+    """The RAS affine of a series from its DICOM header fields (LPS: x and
+    y negated): columns along the rows and columns of the image, the
+    slice step (or, for one slice, their cross product) times dz."""
+    flip = np.array([-1.0, -1.0, 1.0])
+    ax = flip * np.asarray(orientation[:3], float)
+    ay = flip * np.asarray(orientation[3:], float)
+    p0 = flip * np.asarray(position, float)
+    if next_position is None:
+        az = np.cross(ax, ay)
+    else:
+        az = flip * np.asarray(next_position, float) - p0
+        az = az / np.linalg.norm(az)
+    out = np.eye(4)
+    out[:3, 0], out[:3, 1], out[:3, 2] = ax * spacing, ay * spacing, az * dz
+    out[:3, 3] = p0
+    return out
+
+
+def application_files(work, eid, cines, compressed):
+    """One subject's DICOM files for a UK Biobank application zip: per
+    series (folder names as the conversion recognises them) and slice z,
+    one file per frame t (SOP-UID file names) under ``work``, the frame's
+    (Y, X) pixels as uint16, trigger time 40 t ms; ``compressed`` maps
+    folders to transfer syntaxes.  Returns the :func:`_write_dicom` jobs
+    and {sequence: expected affine}."""
+    jobs, affines = [], {}
+    for k, (seq, (key, iop, ipp)) in enumerate(INGEST_GEOMETRY.items()):
+        cine = cines[key]
+        X, Y, Z, T = cine.shape
+        positions = [(ipp[0], ipp[1], ipp[2] + 10.0 * z) for z in range(Z)]
+        affines[seq] = dicom_affine(iop, positions[0],
+                                    positions[1] if Z > 1 else None, 1.8,
+                                    10.0)
+        for z in range(Z):
+            folder = (f"CINE_segmented_SAX_b{z + 1}" if seq == "sa"
+                      else INGEST_FOLDERS[seq])
+            os.makedirs(os.path.join(work, folder), exist_ok=True)
+            syntax = compressed.get(folder, EXPLICIT_LE)
+            for t in range(T):
+                uid = f"1.2.826.0.1.{eid}.{k}.{z}.{t}"
+                attrs = {"SOPInstanceUID": uid,
+                         "SeriesInstanceUID": f"1.2.826.0.2.{eid}.{k}.{z}",
+                         "SeriesDescription": folder,
+                         "CardiacNumberOfImages": T, "Rows": Y,
+                         "Columns": X, "PixelSpacing": [1.8, 1.8],
+                         "SpacingBetweenSlices": 10.0, "SliceThickness": 8.0,
+                         "TriggerTime": 40.0 * t, "InstanceNumber": t + 1,
+                         "ImagePositionPatient": list(positions[z]),
+                         "ImageOrientationPatient": list(iop),
+                         "BitsAllocated": 16, "PixelRepresentation": 0}
+                jobs.append((os.path.join(work, folder, f"{uid}.dcm"), attrs,
+                             np.ascontiguousarray(cine[:, :, z, t].T.astype(
+                                 np.uint16)), syntax))
+    return jobs, affines
+
+
+def zip_folder(work, path):
+    """``work``'s files, stored uncompressed in the zip ``path`` under
+    their relative paths; ``work`` is removed."""
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for d, _, files in sorted(os.walk(work)):
+            for f in sorted(files):
+                zf.write(os.path.join(d, f),
+                         os.path.relpath(os.path.join(d, f), work))
+    shutil.rmtree(work)
+
+
+def write_application_zips(zips, T):
+    """The cohort's N_SUBJECTS subjects (:func:`cohort_subject`) as
+    ``<eid>.zip`` in ``zips``, subject 0 with INGEST_COMPRESSED's series,
+    which a pool of processes encodes (the Python encoders, slowest syntax
+    first) while this process writes the uncompressed files.  Returns the
+    cines, the truth labels, the expected affines (each by eid) and the
+    seconds of each part."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cines, truth, affines, jobs = {}, {}, {}, []
+    sec = {}
+    t0 = time.perf_counter()
+    for i in range(N_SUBJECTS):
+        eid = str(INGEST_EID0 + i)
+        cines[eid], truth[eid] = cohort_subject(i, T)
+        files, affines[eid] = application_files(
+            os.path.join(zips, eid), eid, cines[eid],
+            INGEST_COMPRESSED if i == 0 else {})
+        jobs += files
+    sec["phantoms and headers"] = time.perf_counter() - t0
+    slowest = {JPEG_LS: 0, SOF3: 1, RLE: 2}
+    encoded = sorted((j for j in jobs if j[3] != EXPLICIT_LE),
+                     key=lambda j: slowest[j[3]])
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = [pool.submit(_write_dicom, j) for j in encoded]
+        t1 = time.perf_counter()
+        for job in jobs:
+            if job[3] == EXPLICIT_LE:
+                _write_dicom(job)
+        sec["uncompressed files"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for f in pending:
+            f.result()
+        sec["then waiting for the encoders"] = time.perf_counter() - t1
+    sec["compressed files (pool, from its start)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for eid in cines:
+        zip_folder(os.path.join(zips, eid), os.path.join(zips, f"{eid}.zip"))
+    sec["zips"] = time.perf_counter() - t0
+    print(f"  {len(jobs)} DICOM files, {len(encoded)} of them compressed "
+          f"(subject 0's {', '.join(INGEST_COMPRESSED)})")
+    return cines, truth, affines, sec
+
+
+def decode_rates(tree):
+    """Decode rates of subject 0's compressed series, read from its zip's
+    DICOMs: every frame through the reader (the native decoder for SOF3
+    and JPEG-LS; RLE has only the Python one), and three frames of each
+    JPEG syntax through the Python decoder alone.  Returns lines to
+    print."""
+    import zipfile
+
+    from ukbb_cardiac_tpu_torch.data import dicom
+    from ukbb_cardiac_tpu_torch.data import jpegcodec as jc
+
+    lines = []
+    with zipfile.ZipFile(os.path.join(tree, f"{INGEST_EID0}.zip")) as zf:
+        for folder, syntax in INGEST_COMPRESSED.items():
+            names = sorted(n for n in zf.namelist()
+                           if n.startswith(folder + "/"))
+            images = [dicom._dcmread_pure(zf.read(n)) for n in names]
+            t0 = time.perf_counter()
+            frames = [img.pixel_array for img in images]
+            sec = time.perf_counter() - t0
+            mb = sum(f.nbytes for f in frames) / 1e6
+            how = "Python" if syntax == RLE else "native"
+            lines.append(f"{folder} ({syntax}): {len(frames)} frames "
+                         f"{frames[0].shape} decoded ({how}) in {sec:.4f} s, "
+                         f"{mb / sec:.1f} MB/s")
+            if syntax != RLE:
+                slow = (jc.decode_jpeg_lossless if syntax == SOF3
+                        else jc.decode_jpegls)
+                t0 = time.perf_counter()
+                for img, frame in zip(images[:3], frames):
+                    if not np.array_equal(slow(img.PixelDataFragments[0]),
+                                          frame):
+                        raise AssertionError(f"{folder}: the Python and "
+                                             f"native decoders differ")
+                sec = time.perf_counter() - t0
+                lines.append(f"  the same syntax, 3 frames through the "
+                             f"Python decoder: {sec:.4f} s, "
+                             f"{3 * frames[0].nbytes / 1e6 / sec:.2f} MB/s")
+    return lines
+
+
+def ingestion_phase(card, work):
+    """UK Biobank ingestion on the card's path: N_SUBJECTS subjects of the
+    cohort as application zips (subject 0 with a SOF3, a JPEG-LS and an
+    RLE series), ``cli.convert_data`` to NIfTI, the converted voxels and
+    affines held to the cines and headers written, then
+    ``cli.run_cohort`` in full mode with 1 worker on the converted tree:
+    every stage succeeds, SA Dice >= 0.9 against the phantom truth.
+    Returns the kernels' launches in that cohort run."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.cli import convert_data, run_cohort
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.models import fused_head as fh
+    from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
+
+    T = MAIN_SHAPE[3]
+    print(f"[10/11] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
+          f"DICOMs (SA {MAIN_SHAPE}, LA 2/3/4Ch {MAIN_SHAPE[:2] + (1, T)}, "
+          f"aortic {AO_SHAPE}; SOF3, JPEG-LS and RLE series in subject 0) -> "
+          f"cli.convert_data -> cli.run_cohort full mode, 1 worker",
+          flush=True)
+    zips = os.path.join(work, "ingest_zips")
+    tree = os.path.join(work, "ingest_nifti")
+    os.makedirs(zips)
+    t_phase = t0 = time.perf_counter()
+    cines, truth, affines, parts = write_application_zips(zips, T)
+    print(f"  wrote {N_SUBJECTS} zips in {time.perf_counter() - t0:.2f} s "
+          f"({sum(os.path.getsize(os.path.join(zips, f)) for f in os.listdir(zips)) / 1e6:.1f} MB): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
+    from ukbb_cardiac_tpu_torch import native
+
+    t0 = time.perf_counter()
+    print(f"  native host ops {native.build().name} ready in "
+          f"{time.perf_counter() - t0:.2f} s (g++ at first use)")
+    for line in decode_rates(zips):
+        print(f"  {line}")
+    t0 = time.perf_counter()
+    convert_data.main(["--input_dir", zips, "--output_dir", tree])
+    convert_s = time.perf_counter() - t0
+    print(f"  cli.convert_data: {convert_s:.3f} s, "
+          f"{convert_s / N_SUBJECTS:.3f} s per subject (host)")
+    for eid, cine in cines.items():
+        for seq, (key, _, _) in INGEST_GEOMETRY.items():
+            img = nifti.load(os.path.join(tree, eid, f"{seq}.nii.gz"))
+            vol = np.asarray(img.dataobj)
+            want = cine[key].astype(np.float32)
+            if not (vol.shape == want.shape and np.array_equal(vol, want)
+                    and np.allclose(img.affine, affines[eid][seq],
+                                    atol=1e-6)
+                    and abs(float(img.header["pixdim"][4]) - 0.04) < 1e-6):
+                raise AssertionError(f"{eid} {seq}: converted voxels, affine "
+                                     f"or dt differ from what was written")
+            # the cohort's phantom affine: the same world position for
+            # every voxel of the written slices
+            ref = COHORT_AFFINES[key]
+            if not np.allclose(img.affine[:, [0, 1, 3]], ref[:, [0, 1, 3]]):
+                raise AssertionError(f"{eid} {seq}: affine {img.affine} is "
+                                     f"not the cohort's {ref}")
+    print(f"  converted voxels equal the cines written; affines equal the "
+          f"headers' (SA and aortic: the cohort's; LA: its in-plane axes "
+          f"and origin); dt 0.04 s")
+    write_pressures(os.path.join(work, "ingest_bp.csv"), sorted(cines))
+    fh.fused_head.launches = 0
+    bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
+    manifest = os.path.join(work, "ingest_cohort.json")
+    out = os.path.join(work, "ingest_csv")
+    rc = run_cohort.main([
+        "--data_dir", tree, "--model_path", BUNDLE,
+        "--model_path_la_2ch", os.path.join(WEIGHTS, LA_BUNDLES["la_2ch"]),
+        "--model_path_la_4ch", os.path.join(WEIGHTS, LA_BUNDLES["la_4ch"]),
+        "--model_path_seg4", os.path.join(WEIGHTS, LA_BUNDLES["seg4"]),
+        "--model_path_ao", AO_BUNDLE,
+        "--pressure_csv", os.path.join(work, "ingest_bp.csv"),
+        "--device", "cuda", "--workers", "1", "--output_dir", out,
+        "--manifest", manifest])
+    launches = {"fused_head": fh.fused_head.launches,
+                "bspline_field": bf.bspline_field.launches,
+                "bspline_field_adjoint": bf.bspline_field.adjoint_launches}
+    with open(manifest) as f:
+        m = json.load(f)
+    wall = m["wall_seconds"]
+    print(f"  cohort on the converted tree: wall {wall:.3f} s, "
+          f"{len(m['succeeded']) / wall:.4f} subjects/s; launches {launches} "
+          f"[{card}]")
+    if rc != 0 or len(m["succeeded"]) != N_SUBJECTS or m["failed"]:
+        raise AssertionError(f"ingestion cohort: rc {rc}, failed "
+                             f"{m['failed']}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"ingestion cohort launched a kernel no time: "
+                             f"{launches}")
+    for name, n_col in COHORT_TABLES.items():
+        tab = pd.read_csv(os.path.join(out, name), index_col=0)
+        if tab.shape != (N_SUBJECTS, n_col) or not np.isfinite(
+                tab.values.astype(float)).all():
+            raise AssertionError(f"ingestion {name}: shape {tab.shape} or "
+                                 f"not finite")
+    for eid, tr in truth.items():
+        seg = np.asarray(nifti.load(os.path.join(
+            tree, eid, "seg_sa.nii.gz")).dataobj)
+        d = [dice(seg, tr["sa"], k) for k in (1, 2, 3)]
+        print(f"  subject {eid}: SA Dice LV/Myo/RV "
+              + "/".join(f"{v:.4f}" for v in d))
+        if min(d) < 0.9:
+            raise AssertionError(f"subject {eid}: SA Dice {d} < 0.9")
+    print(f"  ingestion phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2135,6 +2564,10 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] == "--forward_vs":
+        forward_vs_earlier(card, kernels, bf, sys.argv[2])
+        print(card_line())
+        return 0
     builds = build_phase(kernels)
     model = deploy.load_segmentation_model(BUNDLE, "cuda")
     head = kernel_phase(card, fh, tfcn, model, builds["fused_head"])
@@ -2162,9 +2595,11 @@ def main() -> int:
         root, ao_truth, prop_launches = propagation_phase(card, work, bf)
         ao_train_phase(card, root, ao_truth, work)
         packed_phase(card, engine_mod, deploy)
+        # this slice's path: raw DICOM zips -> NIfTI -> the full cohort
+        ingest_launches = ingestion_phase(card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[10/10] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[11/11] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -2174,7 +2609,8 @@ def main() -> int:
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None,
-        "path": "cohort, 1 worker"}]
+        "path": "cohort, 1 worker",
+        "ingestion": {"launches": ingest_launches["fused_head"]}}]
     # the B-spline kernels: launches on the cohort's path and times at the
     # SA strain path's 96^2 (the series of earlier slices), and under
     # "propagation" the aortic propagation's launches and times at its
@@ -2190,6 +2626,7 @@ def main() -> int:
             "launches": cohort_launches[name],
             **{k: t[k] for k in keys},
             "path": "cohort, 1 worker",
+            "ingestion": {"launches": ingest_launches[name]},
             "propagation": {"launches": prop_launches[name],
                             "shape": spline["propagation"]["shape"],
                             **{k: tp[k] for k in keys}}})

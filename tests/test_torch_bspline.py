@@ -20,7 +20,8 @@ from ukbb_cardiac_tpu.reg.pallas_bspline import pallas_dense_field
 from ukbb_cardiac_tpu_torch.reg import bspline as tb
 from ukbb_cardiac_tpu_torch.reg.bspline_field import (ADJOINT_THREADS,
                                                       adjoint_plan,
-                                                      bspline_field)
+                                                      bspline_field,
+                                                      field_plan)
 
 torch.set_num_threads(1)
 
@@ -116,13 +117,11 @@ def test_weight_table_rebuilds_basis_matrix(spacing, extra):
         np.testing.assert_array_equal(B, jb.basis_matrix(dim, spacing))
 
 
-def _kernel_model(c, shape, s):
-    """numpy model of csrc/bspline_field.cu: field_kernel's thread for
-    column y and rows q*s .. q*s+s-1 (the 4 control rows q + a reduced
-    over their 4 columns once, then 4 products per pixel) and
-    adjoint_kernel's two passes (rows x of control i's support into a
-    (Y, 2) buffer, then the columns of control j's support), weights only
-    from the table."""
+def _field_in_order(c, shape, s):
+    """The forward's order of operations as the first design of
+    field_kernel had it (a thread per column y and run of s rows: the 4
+    control rows q + a reduced over their 4 columns, stopping at the
+    lattice's edge, then 4 products per pixel)."""
     w = tb.residue_weights(s)
     B, Cx, Cy, _ = c.shape
     X, Y = shape
@@ -142,6 +141,54 @@ def _kernel_model(c, shape, s):
                 field[:, q * s + r, y] = sum(w[r, a] * row[a]
                                              for a in range(4))
     return field
+
+
+def _kernel_model(c, shape, s):
+    """numpy model of csrc/bspline_field.cu: field_kernel's block for a
+    pair and band of field_plan's rows (whole runs of s rows); each item,
+    a pair of columns (y, y + 1) and the band's rows of one run q, loads
+    the control rows q .. q + 3 at columns y/s .. y/s + 4 (zero beyond the
+    lattice), reduces them over 4 columns for y and for y + 1 (one column
+    further at a seam), and writes s rows of values straight to the
+    output, 16 bytes where the pair is aligned.  Checks that every value
+    is written once."""
+    w = tb.residue_weights(s)
+    B, Cx, Cy, _ = c.shape
+    X, Y = shape
+    rows, threads = field_plan(shape, s)
+    assert rows % s == 0 or rows == X
+    assert threads % 32 == 0 and threads <= 256
+    P = (Y + 1) // 2
+    out = np.zeros((B, X * Y, 2), np.float32)
+    written = np.zeros(X * Y, np.int64)
+    zero = np.zeros((B, 2), np.float32)
+
+    def ctl(i, j):
+        return c[:, i, j] if i < Cx and j < Cy else zero
+
+    for x0 in range(0, X, rows):
+        x1 = min(X, x0 + rows)
+        q0 = x0 // s
+        for it in range(P * ((x1 - 1) // s - q0 + 1)):
+            j, y = it // P, 2 * (it % P)
+            q, qy, qy1 = q0 + j, y // s, (y + 1) // s
+            held = {}
+            for col, wy, k0 in ((y, w[y % s], 0),
+                                (y + 1, w[(y + 1) % s], qy1 - qy)):
+                red = []
+                for a in range(4):
+                    acc = 0
+                    for k in range(4):
+                        acc = acc + wy[k] * ctl(q + a, qy + k0 + k)
+                    red.append(acc)
+                held[col] = red
+            for x in range(max(x0, q * s), min(x1, q * s + s)):
+                for col in (y, y + 1)[:2 if y + 1 < Y else 1]:
+                    out[:, x * Y + col] = sum(w[x - q * s, a] * held[col][a]
+                                              for a in range(4))
+                    written[x * Y + col] += 1
+    np.testing.assert_array_equal(written, 1)
+    return out.reshape(B, X, Y, 2)
 
 
 def _adjoint_model(G, lattice, s):
@@ -226,6 +273,8 @@ def _adjoint_in_order(G, lattice, s):
     ((23, 31), 5, 0), ((30, 26), 4, -2), ((24, 24), 10, 2),
     ((24, 24), 10, 0), ((48, 48), 10, 0), ((96, 96), 10, 0),
     ((96, 96), 40, None),              # the coarse-lattice densify, 6 x 6
+    ((100, 57), 10, 0),                # the aortic propagation's crop
+    ((16, 700), 10, 0),                # wide: more items than threads
     ((192, 192), 10, 0),               # one band, rows in 10 chunks
     ((96, 1024), 10, 0),               # 3 bands of control rows
     ((40, 1536), 10, 0),               # bands of controls, column slices
@@ -238,12 +287,15 @@ def test_kernel_model_matches_plain(shape, spacing, delta):
                      else 2, seed=3)
     G = np.random.RandomState(4).randn(c.shape[0], *shape, 2).astype(
         np.float32)
-    if max(shape) <= 96:
+    if shape[0] * shape[1] <= 12000:
+        got = _kernel_model(c, shape, spacing)
         np.testing.assert_allclose(
-            _kernel_model(c, shape, spacing),
-            tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
-                                         spacing).numpy(), atol=SYNTH_ATOL,
-            rtol=0)
+            got, tb.bspline_dense_field_plain(torch.from_numpy(c), shape,
+                                              spacing).numpy(),
+            atol=SYNTH_ATOL, rtol=0)
+        # the same operands in the same order as the first design
+        np.testing.assert_array_equal(got, _field_in_order(c, shape,
+                                                           spacing))
     got, staged = _adjoint_model(G, c.shape[1:3], spacing)
     np.testing.assert_allclose(
         got, tb.bspline_adjoint_plain(torch.from_numpy(G), c.shape[1:3],
@@ -257,6 +309,18 @@ def test_kernel_model_matches_plain(shape, spacing, delta):
         assert staged.max() == 1   # one band: each pixel read once
     else:
         assert staged.max() > 1    # bands share the rows between them
+
+
+@pytest.mark.parametrize("shape,spacing,plan", [
+    ((96, 96), 10, (20, 96)),      # SA strain, finest level
+    ((128, 128), 10, (20, 128)),   # LA strain
+    ((100, 57), 10, (20, 64)),     # propagation
+    ((96, 96), 40, (40, 64)),      # a densify: one run
+    ((23, 31), 5, (20, 64)),       # odd rows: 8-byte stores
+    ((12, 1000), 10, (12, 256)),   # wider than the threads
+])
+def test_field_plan(shape, spacing, plan):
+    assert field_plan(shape, spacing) == plan
 
 
 def test_wrapper_takes_plain_version_on_cpu():

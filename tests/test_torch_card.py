@@ -565,3 +565,79 @@ def test_aortic_train_step_on_card_matches_cpu(card):
                 for k, g in grads["cpu"].items())
     assert worst <= 1e-3, worst
     assert abs(losses["cpu"] - losses["cuda"]) <= 1e-5 * losses["cpu"]
+
+
+def _sax_cine(X=128, Y=128, Z=6, T=10, seed=0):
+    """An SA cine (int16, values 0-1000) of the cohort phantoms' geometry:
+    an LV disk of radius 20 contracting by 30 %, a myocardial ring of 8,
+    an RV crescent, Gaussian noise."""
+    rng = np.random.RandomState(seed)
+    xx, yy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    cine = np.zeros((X, Y, Z, T), np.float32)
+    for t in range(T):
+        r = 20.0 * (1 - 0.3 * np.sin(np.pi * t / T) ** 2)
+        d2 = (xx - X // 2) ** 2 + (yy - Y // 2) ** 2
+        base = np.zeros((X, Y), np.float32)
+        base[((xx - X // 2 + r + 12) ** 2 + (yy - Y // 2) ** 2
+              <= (0.9 * r + 3) ** 2) & (d2 > (r + 8) ** 2)] = 700.0
+        base[(d2 <= (r + 8) ** 2) & (d2 > r * r)] = 300.0
+        base[d2 <= r * r] = 800.0
+        cine[..., t] = base[:, :, None] + rng.randn(X, Y, Z) * 50.0
+    return np.round(np.clip(cine, 0, 1000)).astype(np.int16)
+
+
+@pytest.mark.cuda
+def test_converted_subject_runs_the_cohort_on_card(card, tmp_path):
+    """One synthetic subject written as DICOMs (one slice SOF3-compressed),
+    converted to NIfTI by ``data/download.py::convert_subject``, then
+    ``run_cohort --device cuda`` in SA mode: the same labels and volume
+    table as the same run from the cine written straight to NIfTI."""
+    from ukbb_cardiac_tpu_torch.cli import run_cohort
+    from ukbb_cardiac_tpu_torch.data import download
+    from ukbb_cardiac_tpu_torch.data.dicom import dcmwrite_minimal
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    cine = _sax_cine()
+    X, Y, Z, T = cine.shape
+    eid = "6000001"
+    for z in range(Z):
+        folder = tmp_path / "dicom" / f"CINE_segmented_SAX_b{z + 1}"
+        folder.mkdir(parents=True)
+        for t in range(T):
+            dcmwrite_minimal(
+                str(folder / f"1.{z}.{t}.dcm"),
+                {"SOPInstanceUID": f"1.{z}.{t}", "SeriesInstanceUID": f"2.{z}",
+                 "CardiacNumberOfImages": T, "Rows": Y, "Columns": X,
+                 "PixelSpacing": [1.8, 1.8], "SpacingBetweenSlices": 10.0,
+                 "SliceThickness": 8.0, "TriggerTime": 40.0 * t,
+                 "ImagePositionPatient": [-80.0, -90.0, -40.0 + 10.0 * z],
+                 "ImageOrientationPatient": [1, 0, 0, 0, 1, 0],
+                 "BitsAllocated": 16, "PixelRepresentation": 0},
+                cine[:, :, z, t].T.astype(np.uint16),
+                transfer_syntax=("1.2.840.10008.1.2.4.70" if z == 1
+                                 else "1.2.840.10008.1.2.1"))
+    converted = tmp_path / "converted"
+    download.convert_subject(str(tmp_path / "dicom"), str(converted / eid))
+    img = nifti.load(str(converted / eid / "sa.nii.gz"))
+    np.testing.assert_array_equal(np.asarray(img.dataobj),
+                                  cine.astype(np.float32))
+    np.testing.assert_allclose(img.affine, [[-1.8, 0, 0, 80], [0, -1.8, 0, 90],
+                                            [0, 0, 10, -40], [0, 0, 0, 1]])
+    phantom = tmp_path / "phantom"
+    (phantom / eid).mkdir(parents=True)
+    direct = nifti.Nifti1Image(cine, img.affine)
+    direct.header["pixdim"][4] = img.header["pixdim"][4]
+    nifti.save(direct, str(phantom / eid / "sa.nii.gz"))
+    segs, tables = {}, {}
+    for tree in (converted, phantom):
+        out = tmp_path / f"{tree.name}_csv"
+        assert run_cohort.main([
+            "--data_dir", str(tree), "--model_path",
+            os.path.join(WEIGHTS, "FCN_sa.npz"), "--output_dir", str(out),
+            "--device", "cuda"]) == 0
+        segs[tree.name] = np.asarray(nifti.load(
+            str(tree / eid / "seg_sa.nii.gz")).dataobj)
+        tables[tree.name] = (out / "table_ventricular_volume.csv").read_text()
+    np.testing.assert_array_equal(segs["converted"], segs["phantom"])
+    assert tables["converted"] == tables["phantom"]
+    assert {1, 2, 3} <= set(np.unique(segs["converted"]))

@@ -28,17 +28,33 @@
 // 0.4 us at 67 TFLOP/s.  The adjoint reads the same 11.1 MB.  Both are bound
 // by bytes, and at these sizes by launch latency.  The design keeps
 // device-memory traffic at the bound: the forward writes each output once,
-// coalesced (neighbouring threads write neighbouring float2), and reads the
-// small lattice through the read-only cache; the adjoint reads each
-// cotangent byte from device memory once, into shared memory.
+// 16 bytes per store, and reads the small lattice through the read-only
+// cache; the adjoint reads each cotangent byte from device memory once,
+// into shared memory.
 //
 // Two kernels on the caller's stream:
-//   field_kernel: one thread per column y and run of s rows x = q*s + r
-//     (all of which read the same 4 control rows), both components, on a
-//     (y / 32, q / 4, b) grid with 32-bit index arithmetic.  The thread
-//     reduces the 4 control rows over their 4 columns once (16 loads
-//     through the read-only cache), then writes its s pixels with 4 FMAs
-//     each: Bx @ (C @ By^T), the inner sum over c (y) first.
+//   field_kernel: a block per pair and band of whole runs of s rows, x =
+//     q*s + r (the host plans it, reg/bspline_field.py::field_plan: about
+//     20 rows), on a (bands, b) grid with 32-bit index arithmetic; a
+//     thread per item, a pair of columns (y, y + 1) and the band's rows of
+//     one run q.  The item issues its 20 lattice loads together (control
+//     rows q .. q+3 at columns y/s .. y/s+4, zero beyond the lattice: no
+//     data-dependent branch holds them back), reduces them over their 4
+//     columns for y and for y + 1 in registers (C @ By^T), then writes its
+//     s rows with 8 FMAs per pair (Bx @ that) and one 16-byte store of the
+//     two neighbouring float2 (two 8-byte stores on a row whose pair is not
+//     16-byte aligned, odd Y): a warp writes 512 contiguous bytes a store,
+//     with no barrier before its first.  At 96^2: 48 x 2 items per block,
+//     96 threads, 750 blocks at B = 150.  The arithmetic is the first
+//     design's, in the same order (fmaf over the 4 columns in ascending
+//     order, then over the 4 rows, each from zero; a control beyond the
+//     lattice, skipped there, is a zero here and adds nothing), so the
+//     output is bitwise the same.
+//     Tried and slower on the H100 at every strain and propagation shape
+//     (PERF.md section 6): the same rows written to a shared tile and out
+//     as one bulk asynchronous copy (cp.async.bulk.global.shared::cta),
+//     by 2-46 %, and two designs that staged the control rows and their
+//     column reductions in shared memory behind barriers.
 //   adjoint_kernel: one block of 256 threads per pair, which walks bands of
 //     ni x nj controls (the whole lattice unless its partial sums do not
 //     fit: the host plans the bands, reg/bspline_field.py::adjoint_plan).
@@ -66,7 +82,7 @@
 //     that two bands share read once per band.  Each control's sums run in
 //     ascending x, then ascending y, in fixed loop orders with no atomics:
 //     two runs agree bit for bit.
-//   Registers (nvcc 12.8, -Xptxas -v): field_kernel 40, adjoint_kernel 48,
+//   Registers (nvcc 12.8, -Xptxas -v): field_kernel 76, adjoint_kernel 48,
 //   no spills.
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -77,53 +93,89 @@
 
 namespace {
 
-constexpr int FIELD_TILE_Y = 32;  // threads along y: one warp, coalesced
-constexpr int FIELD_TILE_Q = 4;   // runs of s rows x per block
+constexpr int FIELD_MAX_THREADS = 256;
 constexpr int ADJOINT_THREADS = 256;  // also the widest column slice
 
-__global__ void field_kernel(int Cx, int Cy, int X, int Y, int s,
-                             const float* __restrict__ table,
-                             const float2* __restrict__ ctl,
-                             float2* __restrict__ out) {
-  extern __shared__ float w[];  // (s, 4)
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int t = tid; t < 4 * s; t += blockDim.x * blockDim.y) w[t] = table[t];
-  __syncthreads();
-  const int y = blockIdx.x * blockDim.x + threadIdx.x;
-  const int q = blockIdx.y * blockDim.y + threadIdx.y;  // rows q*s .. q*s+s-1
-  const int b = blockIdx.z;
-  const int x0 = q * s;
-  if (y >= Y || x0 >= X) return;
-  const int qy = y / s;
-  const float* wy = w + (y - qy * s) * 4;
-  const float2* c = ctl + static_cast<size_t>(b) * Cx * Cy;
-  // the 4 control rows i = q + a these pixels read, reduced over their 4
-  // columns j = qy + k: one set of lattice loads serves all s rows
-  float2 row[4];
-  for (int a = 0; a < 4; ++a) {
-    const int i = q + a;
-    float rx = 0.f, ry = 0.f;
-    if (i < Cx) {
-      for (int k = 0; k < 4; ++k) {
-        const int j = qy + k;
-        if (j >= Cy) break;
-        const float2 v = __ldg(c + i * Cy + j);
-        rx = fmaf(wy[k], v.x, rx);
-        ry = fmaf(wy[k], v.y, ry);
-      }
-    }
-    row[a] = make_float2(rx, ry);
+// Bx @ (the 4 reductions): fmaf over a = 0..3 from zero, the first
+// design's order.
+__device__ __forceinline__ float2 combine(float4 wx, const float2* c) {
+  float ax = fmaf(wx.x, c[0].x, 0.f), ay = fmaf(wx.x, c[0].y, 0.f);
+  ax = fmaf(wx.y, c[1].x, ax);
+  ay = fmaf(wx.y, c[1].y, ay);
+  ax = fmaf(wx.z, c[2].x, ax);
+  ay = fmaf(wx.z, c[2].y, ay);
+  ax = fmaf(wx.w, c[3].x, ax);
+  ay = fmaf(wx.w, c[3].y, ay);
+  return make_float2(ax, ay);
+}
+
+// One row's column reduction at one column: sum_k wy[k] C[a][k0 + k] in
+// ascending k from zero (the first design's order; a control beyond the
+// lattice was skipped there and is a zero here, which adds nothing: the
+// sum of +0 and a product of zero is +0).
+__device__ __forceinline__ float2 reduce4(float4 wy, const float2* c) {
+  float rx = fmaf(wy.x, c[0].x, 0.f), ry = fmaf(wy.x, c[0].y, 0.f);
+  rx = fmaf(wy.y, c[1].x, rx);
+  ry = fmaf(wy.y, c[1].y, ry);
+  rx = fmaf(wy.z, c[2].x, rx);
+  ry = fmaf(wy.z, c[2].y, ry);
+  rx = fmaf(wy.w, c[3].x, rx);
+  ry = fmaf(wy.w, c[3].y, ry);
+  return make_float2(rx, ry);
+}
+
+__device__ __forceinline__ void store_pair(float2* o, bool two, float2 v0,
+                                           float2 v1) {
+  if (two && !(reinterpret_cast<uintptr_t>(o) & 15)) {
+    *reinterpret_cast<float4*>(o) = make_float4(v0.x, v0.y, v1.x, v1.y);
+  } else {
+    o[0] = v0;
+    if (two) o[1] = v1;
   }
-  const int n = min(s, X - x0);
-  float2* o = out + (static_cast<size_t>(b) * X + x0) * Y + y;
-  for (int r = 0; r < n; ++r) {
-    const float* wx = w + r * 4;
-    float ax = 0.f, ay = 0.f;
+}
+
+__global__ void __launch_bounds__(FIELD_MAX_THREADS)
+    field_kernel(int Cx, int Cy, int X, int Y, int s, int rows,
+                 const float4* __restrict__ table,
+                 const float2* __restrict__ ctl, float2* __restrict__ out) {
+  const int b = blockIdx.y;
+  const int x0 = blockIdx.x * rows, x1 = min(X, x0 + rows);
+  const int q0 = x0 / s, P = (Y + 1) / 2;
+  float2* dst = out + (static_cast<size_t>(b) * X + x0) * Y;
+  const float2* cb = ctl + static_cast<size_t>(b) * Cx * Cy;
+  for (int it = threadIdx.x; it < P * ((x1 - 1) / s - q0 + 1);
+       it += blockDim.x) {
+    // an item: columns (y, y + 1) and the block's rows of run q
+    const int j = it / P, y = 2 * (it - j * P), q = q0 + j;
+    const bool two = y + 1 < Y;
+    const int qy = y / s, qy1 = (y + 1) / s;
+    // the 4 control rows q + a at columns qy .. qy + 4, all loads issued
+    // together (zero beyond the lattice)
+    float2 c[4][5];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+        c[a][k] = q + a < Cx && qy + k < Cy
+                      ? __ldg(cb + (q + a) * Cy + qy + k)
+                      : make_float2(0.f, 0.f);
+    const float4 wy0 = __ldg(table + (y - qy * s));
+    const float4 wy1 = __ldg(table + (y + 1 - qy1 * s));
+    float2 r0[4], r1[4];
+#pragma unroll
     for (int a = 0; a < 4; ++a) {
-      ax = fmaf(wx[a], row[a].x, ax);
-      ay = fmaf(wx[a], row[a].y, ay);
+      float2 c1[4];  // column y + 1 reads from qy1, one further at a seam
+#pragma unroll
+      for (int k = 0; k < 4; ++k) c1[k] = qy1 == qy ? c[a][k] : c[a][k + 1];
+      r0[a] = reduce4(wy0, c[a]);
+      r1[a] = reduce4(wy1, c1);
     }
-    o[static_cast<size_t>(r) * Y] = make_float2(ax, ay);
+    const int xa = max(x0, q * s), xb = min(x1, q * s + s);
+    for (int x = xa; x < xb; ++x) {
+      const float4 wx = __ldg(table + (x - q * s));
+      store_pair(dst + (x - x0) * Y + y, two, combine(wx, r0),
+                 combine(wx, r1));
+    }
   }
 }
 
@@ -290,17 +342,18 @@ bool bad_shape(int B, int Cx, int Cy, int X, int Y, int s) {
 }  // namespace
 
 extern "C" int ukbb_bspline_field(int B, int Cx, int Cy, int X, int Y, int s,
-                                  const float* table, const float* control,
-                                  float* field, void* stream) {
-  if (bad_shape(B, Cx, Cy, X, Y, s) || B > 65535)
+                                  int rows, int threads, const float* table,
+                                  const float* control, float* field,
+                                  void* stream) {
+  if (bad_shape(B, Cx, Cy, X, Y, s) || B > 65535 || rows < 1 ||
+      threads < 32 || threads > FIELD_MAX_THREADS || threads % 32 != 0 ||
+      reinterpret_cast<uintptr_t>(field) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (X + s - 1) / s;  // residue runs of s pixel rows
-  const dim3 block(FIELD_TILE_Y, FIELD_TILE_Q);
-  const dim3 grid((Y + FIELD_TILE_Y - 1) / FIELD_TILE_Y,
-                  (rows + FIELD_TILE_Q - 1) / FIELD_TILE_Q, B);
-  const size_t smem = static_cast<size_t>(4 * s) * sizeof(float);
-  field_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      Cx, Cy, X, Y, s, table, reinterpret_cast<const float2*>(control),
+  const dim3 grid((X + rows - 1) / rows, B);
+  field_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      Cx, Cy, X, Y, s, rows, reinterpret_cast<const float4*>(table),
+      reinterpret_cast<const float2*>(control),
       reinterpret_cast<float2*>(field));
   return static_cast<int>(cudaGetLastError());
 }

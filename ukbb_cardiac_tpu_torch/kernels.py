@@ -45,8 +45,9 @@ SIGNATURES = {
         ("ukbb_cuda_error_string", ctypes.c_char_p, [_I]),
     ],
     "bspline_field": [
-        # B, Cx, Cy, X, Y, spacing; weight table, input, output, stream
-        ("ukbb_bspline_field", _I, [_I] * 6 + [_P] * 4),
+        # B, Cx, Cy, X, Y, spacing, the launch (rows, threads);
+        # weight table, input, output, stream
+        ("ukbb_bspline_field", _I, [_I] * 8 + [_P] * 4),
         # the same, with the band plan (ni, nj, rows, width) after spacing
         ("ukbb_bspline_field_adjoint", _I, [_I] * 10 + [_P] * 4),
         ("ukbb_cuda_error_string", ctypes.c_char_p, [_I]),

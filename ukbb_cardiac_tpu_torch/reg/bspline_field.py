@@ -7,8 +7,9 @@ form (``reg/bspline.py::bspline_dense_field`` under ``jax.grad``).  Here
 one ``torch.autograd.Function`` covers both directions for a batch:
 
 - forward  (B, Cx, Cy, 2) → (B, X, Y, 2): ``csrc/bspline_field.cu``
-  ``field_kernel`` on CUDA tensors, :func:`bspline_dense_field_plain` on
-  CPU tensors;
+  ``field_kernel`` (one block per pair and band of pixel rows that
+  :func:`field_plan` lays out; 16-byte stores) on CUDA tensors,
+  :func:`bspline_dense_field_plain` on CPU tensors;
 - backward (B, X, Y, 2) → (B, Cx, Cy, 2), ``Bxᵀ G By``
   (:func:`bspline_field_adjoint`): the kernel's ``adjoint_kernel``
   (one block per pair over the bands :func:`adjoint_plan` lays out;
@@ -42,6 +43,28 @@ def weight_table(spacing: int, device) -> torch.Tensor:
     if key not in _TABLES:
         _TABLES[key] = torch.from_numpy(residue_weights(spacing)).to(device)
     return _TABLES[key]
+
+
+# The forward's blocks: whole runs of s rows of a pair, about
+# FIELD_BLOCK_ROWS rows (the best of 1, 2 and 4 runs at every strain and
+# propagation shape on the H100, PERF.md section 6), one thread per pair
+# of columns and run, up to FIELD_MAX_THREADS, each storing its values
+# from registers.
+FIELD_BLOCK_ROWS = 20
+FIELD_MAX_THREADS = 256
+
+
+@lru_cache(maxsize=None)
+def field_plan(image_shape: Tuple[int, int],
+               spacing: int) -> Tuple[int, int]:
+    """How ``field_kernel`` cuts a pair: (rows, threads), blocks of as
+    many whole runs of s rows as make about FIELD_BLOCK_ROWS rows (at
+    least one run, at most the image), a thread per pair of columns and
+    run of the block, in whole warps."""
+    X, Y = image_shape
+    rows = min(max(1, FIELD_BLOCK_ROWS // spacing) * spacing, X)
+    items = (Y + 1) // 2 * -(-rows // spacing)
+    return rows, min(FIELD_MAX_THREADS, -(-items // 32) * 32)
 
 
 # The adjoint's shared memory for its partial sums and two staged chunks:
@@ -125,7 +148,7 @@ class _BSplineField(torch.autograd.Function):
                           device=control.device)
         if control.shape[0]:
             _launch("ukbb_bspline_field", control, out, ctx.meta[0], (X, Y),
-                    spacing)
+                    spacing, *field_plan((X, Y), spacing))
             kernels.count_launches(bspline_field, 1)
         return out
 
