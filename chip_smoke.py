@@ -96,11 +96,31 @@
    the affines to the headers written, and runs ``cli.run_cohort`` in
    full mode with 1 worker on the converted tree: every subject and
    table, the kernels' launches, SA Dice >= 0.9 against the truth;
-11. prints the card's name and power limit, one JSON line of kernel
-   figures (the head's launches from the 1-worker cohort run and from
-   the ingestion phase's, the B-spline kernels' likewise and from the
-   propagation, with their times at its shape), and, last, ``{"ok":
-   true, "device": {...}}``.
+11. this slice: ``cli.demo_pipeline.main`` on the cohort's first 2
+   subjects with the trained bundles and the pressure CSV on the card
+   (wall, each stage's seconds, the kernels' launches; every seg and
+   table; the volume, wall-thickness, atrial and aortic rows equal to the
+   cohort phase's, strain within the CPU bounds; SA Dice >= 0.9);
+   ``cli.deploy_network --trace_dir`` on one subject (the Chrome trace
+   names ``head_kernel`` and ``coarse_kernel``; its size and the head's
+   device time read from it); the both-directions SA strain
+   (``inverse_consistent=False``, 294 pairs) on one subject beside the
+   default scheme's Global Ecc/Err, and card against CPU on a 6-frame cut
+   within the CPU tests' bounds for it; ``cli.verify_checkpoint
+   --fingerprint`` on the five bundles and ``--fingerprint_diff`` against
+   the committed goldens (without TensorFlow the forward check exits 2, as
+   the JAX CLI's); ``cli.perform_phenome_wide_association`` on a synthetic
+   UK Biobank-shaped table (3,000 subjects x 500 fields x 101 IDPs;
+   without matplotlib the same steps without the plot): seconds by step,
+   M x N, the thresholds, the planted associations as the top hits.
+   Phase 2 also holds both B-spline kernels at the both-directions batch
+   (B = 294 at every level of the 96^2 bucket), and phase 9 times the
+   native host pack beside its numpy twin (bytes identical);
+12. prints the card's name and power limit, one JSON line of kernel
+   figures (the head's launches from the 1-worker cohort run, the
+   ingestion phase's and the demo's, the B-spline kernels' likewise and
+   from the propagation and the both-directions run, with their times at
+   those shapes), and, last, ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --forward_vs <tree>`` instead builds the B-spline
 forward of another checkout ``<tree>`` (an earlier design, C interface
@@ -149,6 +169,7 @@ KERNEL_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 FIELD_ATOL, ADJOINT_ATOL = 1e-5, 1e-4
 N_PAIRS = 150                        # 3 slices x 50 frames, inverse-consistent
 N_LA_PAIRS = 50                      # one 4-chamber slice x 50 frames
+N_PAIRS_BOTH = 3 * 2 * 49            # 3 slices x 2(T-1), both directions
 LA_BUCKET = 128                      # the LA LV crop, bucketed to 64s
 # (pairs, image side, lattice side, spacing) of every synthesis on the
 # strain paths: SA on its 96^2 bucket, LA on 128^2; per pyramid level the
@@ -165,9 +186,19 @@ BSPLINE_CASES = [
 # path (two 8-byte stores) runs at both row parities of every pair (the
 # propagation's 100 x 57 has odd Y, but even X*Y)
 VECTOR_CASE = (7, (23, 31), (8, 9), 5)
+# the both-directions SA strain scheme at the SA bucket: every pyramid
+# level's Adam lattice and the densifies (drawn after the cases above, so
+# their inputs and sha256 stay the earlier slices')
+BOTH_CASES = [(N_PAIRS_BOTH, (X, X), (C, C), s) for X, C, s in (
+    (24, 6, 10), (48, 8, 10), (96, 13, 10), (48, 6, 20), (96, 6, 40),
+    (96, 8, 20))]
 # card vs CPU strain on a reduced subject: the bounds the CPU parity tests
 # hold the port to against the JAX package (tests/test_torch_strain.py)
 STRAIN_SEGMENT_ATOL, STRAIN_GLOBAL_ATOL, DICE_ATOL = 2.0, 0.5, 0.005
+# the both-directions scheme's bounds (tests/test_torch_strain_both.py:
+# twice the JAX package's own 2.58 pp drift per segment under 1e-7 noise;
+# the default scheme's Global and warp-Dice bounds)
+BOTH_SEGMENT_ATOL = 5.2
 # the cohort: the trained LA bundles (2, 3 and 6 classes), the world
 # affines of tests/test_cohort.py, and the LA strain bounds of
 # tests/test_torch_la.py
@@ -526,6 +557,88 @@ def cohort_subject(i, T):
              "ao": seg_ao})
 
 
+# the PheWAS phase: a synthetic UK Biobank-shaped table (two-row headers
+# "<description>" / "<field>-<instance>.<array>", the confounder fields,
+# the categories table's other fields in its order: continuous, ordinal
+# with the -1 / -3 "do not know" codes, binary; 8 % missing) and IDPs
+# driven by age and sex, with PHEWAS_PLANTED fields planted on IDPs
+PHEWAS_CONFOUNDERS = [("Sex", "31-0.0"), ("Year of birth", "34-0.0"),
+                      ("Month of birth", "52-0.0"),
+                      ("Date of attending assessment centre", "53-2.0"),
+                      ("Weight", "21002-2.0"),
+                      ("Body mass index (BMI)", "21001-2.0")]
+PHEWAS_PLANTED = 4
+
+
+def phewas_tables(root, n_subjects, n_fields, n_idp, seed=0):
+    """Write the IDP table and the non-imaging CSVs (the confounders in
+    one, the fields in two more) of a synthetic cohort into ``root``;
+    returns (IDP CSV, non-imaging CSVs, planted (IDP, field column)
+    pairs).  Field IDs are the port's categories table's, so the
+    Manhattan plot colours them by category."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.assoc.phewas import DEFAULT_CATEGORIES_TSV
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    n = n_subjects
+    index = pd.Index(1000000 + np.arange(n), name="eid")
+    sex = rng.randint(0, 2, n).astype(float)
+    year = rng.randint(1940, 1971, n)
+    month = rng.randint(1, 13, n)
+    visit = rng.randint(0, 2500, n)
+    dates = (np.datetime64("2014-06-01")
+             + visit.astype("timedelta64[D]")).astype(str)
+    weight = np.round(rng.normal(76, 14, n), 1)
+    bmi = np.round(weight / (rng.normal(170, 9, n) / 100) ** 2, 4)
+    age = (2014 - year) + visit / 365.25
+    idp = (rng.randn(n, n_idp) + 0.05 * age[:, None]
+           + 0.5 * sex[:, None] * rng.randn(1, n_idp))
+    seen = {int(f.split("-")[0]) for _, f in PHEWAS_CONFOUNDERS} | {21003}
+    fields = []
+    with open(DEFAULT_CATEGORIES_TSV) as f:
+        for line in f:
+            if not line.startswith("#"):
+                fid = int(line.split("\t")[1])
+                if fid not in seen:
+                    seen.add(fid)
+                    fields.append(fid)
+    fields = fields[:n_fields]
+    vals = np.empty((n, len(fields)))
+    for j, kind in enumerate(rng.randint(0, 3, len(fields))):
+        if kind == 0:
+            vals[:, j] = np.round(rng.normal(50, 10, n), 2)
+        elif kind == 1:
+            vals[:, j] = rng.choice([1, 2, 3, 4, -1, -3], n,
+                                    p=[.3, .3, .2, .15, .03, .02])
+        else:
+            vals[:, j] = rng.rand(n) < rng.uniform(0.1, 0.5)
+    vals[rng.rand(n, len(fields)) < 0.08] = np.nan
+    planted = []
+    for k in range(PHEWAS_PLANTED):
+        j, i = 3 * k + 1, (7 * k) % n_idp
+        vals[:, j] = np.round(50 + 10 * (idp[:, i] + rng.randn(n)), 2)
+        planted.append((f"IDP {i}", f"{fields[j]}-2.0"))
+    idp_path = os.path.join(root, "clinical_measures.csv")
+    pd.DataFrame(idp, index=index, columns=[f"IDP {i}" for i in
+                                            range(n_idp)]).to_csv(
+        idp_path, float_format="%.6g")
+    conf = pd.DataFrame(dict(enumerate((sex, year, month, dates, weight,
+                                        bmi))), index=index)
+    conf.columns = pd.MultiIndex.from_tuples(PHEWAS_CONFOUNDERS)
+    paths = [os.path.join(root, "demographics.csv")]
+    conf.to_csv(paths[0])
+    cols = pd.MultiIndex.from_tuples([(f"Field {fid}", f"{fid}-2.0")
+                                      for fid in fields])
+    half = len(fields) // 2
+    for part, sl in enumerate((slice(0, half), slice(half, None))):
+        paths.append(os.path.join(root, f"category_{part}.csv"))
+        pd.DataFrame(vals[:, sl], index=index, columns=cols[sl]).to_csv(
+            paths[-1], float_format="%.6g")
+    return idp_path, paths, planted
+
+
 def write_pressures(path, subjects):
     """The pressure CSV of the aortic stage: two header rows, Vicorder
     fields 12678-2.0/2.1."""
@@ -618,7 +731,7 @@ def idle_propagation(prop, nifti, d, T, seed):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/11] build", flush=True)
+    print("[1/12] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -705,7 +818,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/11] fused head vs its plain version at the main path's shapes",
+    print("[2/12] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -749,7 +862,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/11] fused head with the LA bundles vs its plain version at "
+    print(f"[2/12] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -813,14 +926,15 @@ def forward_shapes() -> dict:
     paths and the propagation's, by name."""
     return {"sa": (N_PAIRS, (96, 96), (13, 13), 10),
             "la": (N_LA_PAIRS, (LA_BUCKET, LA_BUCKET), (16, 16), 10),
-            "propagation": propagation_case()}
+            "propagation": propagation_case(),
+            "both": (N_PAIRS_BOTH, (96, 96), (13, 13), 10)}
 
 
 def bspline_cases():
     """Every B-spline case of phase 2, (pairs, (X, Y), (Cx, Cy), spacing),
     with its seeded lattices and cotangents (numpy, float32), in order."""
     cases = [(B, (X, X), (C, C), s) for B, X, C, s in BSPLINE_CASES]
-    cases += [propagation_case(), VECTOR_CASE]
+    cases += [propagation_case(), VECTOR_CASE] + BOTH_CASES
     rng = np.random.RandomState(11)
     for case in cases:
         B, (X, Y), (Cx, Cy), _ = case
@@ -841,8 +955,9 @@ def bspline_phase(card, tb, bf):
     propagation's."""
     import torch.nn.functional as F
 
-    print("[2/11] B-spline synthesis and adjoint vs their plain versions, "
-          f"B = {N_PAIRS} (SA) and {N_LA_PAIRS} (LA)", flush=True)
+    print("[2/12] B-spline synthesis and adjoint vs their plain versions, "
+          f"B = {N_PAIRS} (SA), {N_LA_PAIRS} (LA) and {N_PAIRS_BOTH} (SA, "
+          "both directions)", flush=True)
     result = {}
     for case, c, G in bspline_cases():
         B, (X, Y), (Cx, Cy), s = case
@@ -984,7 +1099,7 @@ def forward_vs_earlier(card, kernels, bf, tree):
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/11] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/12] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -1072,7 +1187,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/11] main path: wall thickness + SA strain "
+    print(f"[4/12] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -1279,7 +1394,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/11] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/12] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1517,7 +1632,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/11] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/12] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1658,7 +1773,7 @@ def train_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import sa as tsa
 
-    print(f"[7/11] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+    print(f"[7/12] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
           f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
           flush=True)
     data = os.path.join(work, "train_set")
@@ -1884,7 +1999,7 @@ def resnet_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 
-    print("[8/11] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+    print("[8/12] ResNet-FCN deploy: seeded init at the FCN_sa widths",
           flush=True)
     cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
                             n_filter=(16, 32, 64, 128, 256),
@@ -1944,7 +2059,7 @@ def propagation_phase(card, work, bf):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     B, crop_shape, lattice, spacing = propagation_case()
-    print(f"[9/11] aortic labels propagated (RegConfig.aortic_motion(): 1 "
+    print(f"[9/12] aortic labels propagated (RegConfig.aortic_motion(): 1 "
           f"level, 100 Adam steps, NMI) on {AO_TRAIN_SUBJECTS} {AO_SHAPE} "
           f"int16 cines annotated at frames {AO_ANNOTATED}", flush=True)
     root = os.path.join(work, "ao_train")
@@ -2082,7 +2197,7 @@ def ao_train_phase(card, root, truth, work):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import ao as tao
 
-    print(f"[9/11] aortic trainer on the propagated labels: U-Net 16-256, "
+    print(f"[9/12] aortic trainer on the propagated labels: U-Net 16-256, "
           f"5 levels, BiConvLSTM 16 hidden, {AO_SIZE_TRAIN}^2 crops",
           flush=True)
     # one validation subject with its true labels
@@ -2218,7 +2333,7 @@ def packed_phase(card, engine_mod, deploy):
     from ukbb_cardiac_tpu_torch.infer import transfer
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 
-    print("[9/11] the packed up-leg: one SA and one aortic cine, packed and "
+    print("[9/12] the packed up-leg: one SA and one aortic cine, packed and "
           "raw", flush=True)
     sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
                         wall=0.039 * MAIN_SHAPE[0],
@@ -2249,6 +2364,26 @@ def packed_phase(card, engine_mod, deploy):
             ms[mode] = pending.device_ms
             out[mode + "_bytes"] = eng._stats.h2d_bytes - before
         plan = transfer.plan_pack(cine, None)
+        # the host pack alone: the (X, Y, Z, T) C-order copy of the
+        # Fortran-ordered cine that upload_cine makes first, then the
+        # native plane split against its numpy twin on that copy, in turns
+        t0 = time.perf_counter()
+        c_order = np.ascontiguousarray(cine)
+        t_copy = time.perf_counter() - t0
+        host_pack, packed = {}, {}
+        for tag, plain in (("native", False), ("numpy", True),
+                           ("native", False), ("numpy", True)):
+            t0 = time.perf_counter()
+            packed[tag] = transfer.pack_buffer(c_order, plan, plain=plain)
+            host_pack.setdefault(tag, []).append(time.perf_counter() - t0)
+        same = np.array_equal(packed["native"], packed["numpy"])
+        print(f"  {name}: host C-order copy {t_copy:.4f} s, then the pack in "
+              f"turns native / numpy / native / numpy "
+              f"{host_pack['native'][0]:.4f} / {host_pack['numpy'][0]:.4f} / "
+              f"{host_pack['native'][1]:.4f} / {host_pack['numpy'][1]:.4f} s "
+              f"(GPU machine's host), bytes identical {same}")
+        if not same:
+            raise AssertionError(f"{name}: native and numpy packs differ")
         print(f"  {name} {cine.shape} {cine.dtype}: packed ({plan.mode}, "
               f"{8 + plan.hi_bits}-bit) {out['packed_bytes']} bytes, raw "
               f"{out['raw_bytes']} bytes; dispatch host time packed "
@@ -2448,7 +2583,7 @@ def ingestion_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
 
     T = MAIN_SHAPE[3]
-    print(f"[10/11] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
+    print(f"[10/12] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
           f"DICOMs (SA {MAIN_SHAPE}, LA 2/3/4Ch {MAIN_SHAPE[:2] + (1, T)}, "
           f"aortic {AO_SHAPE}; SOF3, JPEG-LS and RLE series in subject 0) -> "
           f"cli.convert_data -> cli.run_cohort full mode, 1 worker",
@@ -2540,6 +2675,355 @@ def ingestion_phase(card, work):
     return launches
 
 
+# the ninth slice's phase: the demo on the cohort phase's first subjects,
+# the device trace, both-directions strain, the checkpoint audit, PheWAS
+DEMO_SUBJECTS = 2
+DEMO_SEGS = ("seg_sa.nii.gz", "seg_sa_ED.nii.gz", "seg_sa_ES.nii.gz",
+             "seg_la_2ch.nii.gz", "seg_la_4ch.nii.gz", "seg4_la_4ch.nii.gz",
+             "seg_ao.nii.gz")
+# demo tables against the cohort phase's rows: exact for volumes (labels
+# are the same), the CPU tests' rtol 1e-6 for the host measures, the
+# strain bounds (per column, Global columns) for the registrations
+DEMO_TABLES = {"table_ventricular_volume.csv": 0.0,
+               "table_wall_thickness.csv": 1e-6,
+               "table_atrial_volume.csv": 1e-6,
+               "table_aortic_area.csv": 1e-6}
+COHORT_VOLUME_NAMES = {"LVM (g)": "LVEDM"}
+DEMO_STRAIN = {"table_strain_sax.csv": (STRAIN_SEGMENT_ATOL,
+                                        STRAIN_GLOBAL_ATOL),
+               "table_strain_lax.csv": (LA_STRAIN_SEGMENT_ATOL,
+                                        LA_STRAIN_GLOBAL_ATOL)}
+# PheWAS at a size whose CLI run stays under 30 s on one host core: a
+# UK Biobank imaging cohort's ~20,000 subjects cut to 3,000 (age_by_date
+# reads each subject's row of the whole table, O(subjects x fields)); 500
+# fields; one IDP per column of the cohort's tables
+PHEWAS_SIZE = (3000, 500, sum(COHORT_TABLES.values()))
+PHEWAS_STEPS = ("build_confounders", "clean_columns", "normalise_non_idps",
+                "deconfound_idps", "univariate_correlation",
+                "significance_thresholds", "manhattan_plot",
+                "top_hits_table")
+
+
+def _reset_launches():
+    from ukbb_cardiac_tpu_torch.models import fused_head as fh
+    from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
+
+    fh.fused_head.launches = 0
+    bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
+
+
+def _launches():
+    from ukbb_cardiac_tpu_torch.models import fused_head as fh
+    from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
+
+    return {"fused_head": fh.fused_head.launches,
+            "bspline_field": bf.bspline_field.launches,
+            "bspline_field_adjoint": bf.bspline_field.adjoint_launches}
+
+
+def demo_phase(card, work, truth):
+    """``cli.demo_pipeline.main`` on the cohort phase's first subjects
+    (their cines, its pressure CSV, the trained bundles): every seg and
+    table, the rows against the cohort phase's, SA Dice.  Returns the
+    kernels' launches in the demo."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.cli import demo_pipeline
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    subjects = sorted(truth)[:DEMO_SUBJECTS]
+    print(f"[11/12] this slice: the demo pipeline on {len(subjects)} "
+          f"subjects (SA {MAIN_SHAPE}, LA {MAIN_SHAPE[:2] + (1, MAIN_SHAPE[3])}"
+          f", aortic {AO_SHAPE} int16), the trained bundles", flush=True)
+    root = os.path.join(work, "demo")
+    data, csv = (os.path.join(root, "demo_image"),
+                 os.path.join(root, "demo_csv"))
+    os.makedirs(csv)
+    for subject in subjects:
+        os.makedirs(os.path.join(data, subject))
+        for seq in ("sa", "la_2ch", "la_4ch", "ao"):
+            shutil.copy(os.path.join(work, "cohort", subject,
+                                     f"{seq}.nii.gz"),
+                        os.path.join(data, subject))
+    shutil.copy(os.path.join(work, "bp.csv"),
+                os.path.join(csv, "blood_pressure_info.csv"))
+    _reset_launches()
+    t0 = time.perf_counter()
+    stages = demo_pipeline.main(["--data_dir", data, "--model_dir", WEIGHTS,
+                                 "--csv_dir", csv, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"  demo wall {wall:.3f} s; stage s "
+          + ", ".join(f"{k} {v['total_s']:.3f}" for k, v in stages.items())
+          + f"; launches {launches} [{card}]")
+    if len(stages) != 9 or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"demo: stages {list(stages)}, launches "
+                             f"{launches}")
+    for subject in subjects:
+        for name in DEMO_SEGS:
+            if not os.path.exists(os.path.join(data, subject, name)):
+                raise AssertionError(f"demo: {subject}/{name} missing")
+        seg = np.asarray(nifti.load(os.path.join(
+            data, subject, "seg_sa.nii.gz")).dataobj)
+        d = [dice(seg, truth[subject]["sa"], k) for k in (1, 2, 3)]
+        print(f"  subject {subject}: SA Dice LV/Myo/RV "
+              + "/".join(f"{v:.4f}" for v in d))
+        if min(d) < 0.9:
+            raise AssertionError(f"demo: subject {subject} SA Dice {d}")
+    cohort = os.path.join(work, "cohort_csv_0")
+    rows = [int(s) for s in subjects]
+    for name, bounds in list(DEMO_TABLES.items()) + list(DEMO_STRAIN.items()):
+        got = pd.read_csv(os.path.join(csv, name), index_col=0)
+        ref = pd.read_csv(os.path.join(cohort, name), index_col=0)
+        # the cohort's volume table keeps the measures' own names
+        # (LVEDV, LVEDM, ...), the CLI's adds units (LVEDV (mL), LVM (g))
+        cols = [c if c in ref.columns else
+                COHORT_VOLUME_NAMES.get(c, c.split(" (")[0])
+                for c in got.columns]
+        if sorted(got.index) != rows or not set(cols) <= set(ref.columns):
+            raise AssertionError(f"demo {name}: rows {list(got.index)}, "
+                                 f"columns {list(got.columns)}")
+        g = got.loc[rows].values.astype(float)
+        r = ref.loc[rows, cols].values.astype(float)
+        if name in DEMO_TABLES:
+            ok = np.allclose(g, r, rtol=bounds, atol=0, equal_nan=True)
+            worst = np.nanmax(np.abs(g - r) / np.maximum(np.abs(r), 1e-30))
+            print(f"  {name}: rows against the cohort phase's, largest "
+                  f"relative difference {worst:.3e} (bound {bounds})")
+        else:
+            glob_cols = np.array(["Global" in c for c in cols])
+            diff = np.abs(g - r)
+            seg_diff = np.nanmax(diff)
+            glob_diff = np.nanmax(diff[:, glob_cols]) if glob_cols.any() \
+                else 0.0
+            ok = seg_diff <= bounds[0] and glob_diff <= bounds[1]
+            print(f"  {name}: against the cohort phase's, per column "
+                  f"{seg_diff:.4f} pp (bound {bounds[0]}), Global "
+                  f"{glob_diff:.4f} pp (bound {bounds[1]})")
+        if not ok:
+            raise AssertionError(f"demo {name} differs from the cohort "
+                                 f"phase's rows")
+    return launches
+
+
+def trace_phase(card, work, subject):
+    """``cli.deploy_network --trace_dir`` on one subject: the trace names
+    the head's kernels; their device time read from it."""
+    from ukbb_cardiac_tpu_torch.cli import deploy_network
+
+    data = os.path.join(work, "trace_data")
+    os.makedirs(os.path.join(data, subject))
+    shutil.copy(os.path.join(work, "cohort", subject, "sa.nii.gz"),
+                os.path.join(data, subject))
+    trace_dir = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    deploy_network.main(["--data_dir", data, "--model_path", BUNDLE,
+                         "--trace_dir", trace_dir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"device trace: files {files}")
+    with open(files[0]) as f:
+        text = f.read()
+    if "head_kernel" not in text or "coarse_kernel" not in text:
+        raise AssertionError("device trace names no head_kernel / "
+                             "coarse_kernel")
+    kern = {k: [e["dur"] for e in json.loads(text)["traceEvents"]
+                if e.get("cat") == "kernel" and k in e.get("name", "")]
+            for k in ("head_kernel", "coarse_kernel")}
+    print(f"  device trace of one SA deploy (wall {wall:.3f} s): "
+          f"{os.path.getsize(files[0]) / 1e6:.2f} MB; head_kernel "
+          f"{len(kern['head_kernel'])} launches, "
+          f"{sum(kern['head_kernel']) / 1e3:.4f} ms on the device; "
+          f"coarse_kernel {len(kern['coarse_kernel'])} launches, "
+          f"{sum(kern['coarse_kernel']) / 1e3:.4f} ms [{card}]")
+
+
+def both_directions_phase(card, work, strain, register):
+    """Both-directions SA strain (``inverse_consistent=False``) on the
+    main path's first deployed subject on the card, beside the default
+    scheme's tables there; then card against the port's CPU path on the
+    strain phase's 6-frame cut.  Returns the B-spline launches of the
+    full-size run."""
+    cfg = register.RegConfig.cine_2d_motion()
+    subject = sorted(os.listdir(os.path.join(work, "data")))[0]
+    subj = os.path.join(work, "data", subject)
+    motion = os.path.join(subj, "motion_both")
+    os.makedirs(motion)
+    _reset_launches()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    ev[0].record()
+    ctx = strain.start_sa_motion_dispatch(subj, motion, cfg, eval_dice=True,
+                                          device="cuda",
+                                          inverse_consistent=False)
+    ev[1].record()
+    dice_df = strain.finish_sa_motion(ctx, os.path.join(subj, "strain_both"))
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    del launches["fused_head"]
+    pairs = len(ctx["selected"]) * 2 * (ctx["T"] - 1)
+    tab = {k: strain_tables(os.path.join(subj, k))
+           for k in ("strain_both", "strain_sa")}
+    ecc = {k: t["circum"].loc["Global"].min() for k, t in tab.items()}
+    err = {k: t["radial"].loc["Global"].max() for k, t in tab.items()}
+    d = dice_df.values.mean(axis=0)
+    print(f"  both-directions SA strain, subject {subject}: {pairs} pairs, "
+          f"strain wall {wall:.4f} s, device span "
+          f"{ev[0].elapsed_time(ev[1]):.4f} ms [{card}]; launches "
+          f"{launches}; global Ecc {ecc['strain_both']:.4f} % (default "
+          f"scheme {ecc['strain_sa']:.4f}), Err {err['strain_both']:.4f} % "
+          f"(default {err['strain_sa']:.4f}); warp-Dice LV {d[0]:.4f} Myo "
+          f"{d[1]:.4f}")
+    if pairs != N_PAIRS_BOTH or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"both directions: {pairs} pairs, launches "
+                             f"{launches}")
+    if not (np.isfinite(ecc["strain_both"]) and np.isfinite(err[
+            "strain_both"]) and d[0] >= 0.9):
+        raise AssertionError("both directions: strain not finite or "
+                             f"warp-Dice {d}")
+    red = os.path.join(work, "reduced", subject)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m_dir = os.path.join(red, f"motion_both_{dev}")
+        os.makedirs(m_dir)
+        t0 = time.perf_counter()
+        dd = strain.cine_2d_sa_motion_and_strain_analysis(
+            red, m_dir, os.path.join(red, f"both_{dev}"), cfg,
+            eval_dice=True, device=dev, inverse_consistent=False)
+        out[dev] = (strain_tables(os.path.join(red, f"both_{dev}")),
+                    dd.values, time.perf_counter() - t0)
+    seg_diff = max(np.nanmax(np.abs(out["cuda"][0][k].values
+                                    - out["cpu"][0][k].values))
+                   for k in ("radial", "circum"))
+    glob_diff = max(np.abs(out["cuda"][0][k].loc["Global"].values
+                           - out["cpu"][0][k].loc["Global"].values).max()
+                    for k in ("radial", "circum"))
+    dice_diff = np.abs(out["cuda"][1] - out["cpu"][1]).max()
+    print(f"  card vs CPU both-directions strain on a (192, 208, 10, 6) "
+          f"subject: per-segment {seg_diff:.4f} pp (bound "
+          f"{BOTH_SEGMENT_ATOL}), global {glob_diff:.4f} pp (bound "
+          f"{STRAIN_GLOBAL_ATOL}), warp-Dice {dice_diff:.5f} (bound "
+          f"{DICE_ATOL}); card {out['cuda'][2]:.3f} s, CPU "
+          f"{out['cpu'][2]:.3f} s")
+    if not (seg_diff <= BOTH_SEGMENT_ATOL and glob_diff <= STRAIN_GLOBAL_ATOL
+            and dice_diff <= DICE_ATOL):
+        raise AssertionError("card and CPU both-directions strain disagree")
+    return launches
+
+
+def checkpoint_phase(work):
+    """``cli.verify_checkpoint --fingerprint`` on the five trained bundles
+    and ``--fingerprint_diff`` against the committed goldens."""
+    import importlib.util
+
+    from ukbb_cardiac_tpu_torch.cli import verify_checkpoint
+
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    for name in ("FCN_sa", "FCN_la_2ch", "FCN_la_4ch", "FCN_la_4ch_seg4",
+                 "UNet-LSTM_ao"):
+        fp = os.path.join(work, f"{name}.json")
+        rc = verify_checkpoint.main([
+            "--model_path", os.path.join(WEIGHTS, f"{name}.npz"),
+            "--fingerprint", fp, "--device", "cuda"])
+        diff = verify_checkpoint.main([
+            "--fingerprint_diff",
+            os.path.join(WEIGHTS, "fingerprints", f"{name}.json"), fp])
+        print(f"  checkpoint audit {name}: verify exit {rc} ("
+              + ("forward checked against the TF ops" if has_tf else
+                 "TensorFlow absent on this machine: the forward check "
+                 "cannot run, exit 2 as the JAX CLI's")
+              + f"), fingerprint diff against the golden exit {diff}")
+        if diff != 0 or rc != (0 if has_tf else 2):
+            raise AssertionError(f"checkpoint audit {name}: exit {rc}, "
+                                 f"diff {diff}")
+
+
+def phewas_phase(card, work):
+    """``cli.perform_phenome_wide_association`` on a synthetic UK
+    Biobank-shaped table (host work): seconds by step, M x N, the
+    thresholds; the planted associations must be the top hits."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.cli import \
+        perform_phenome_wide_association as cli
+
+    n, m, k = PHEWAS_SIZE
+    root = os.path.join(work, "phewas")
+    t0 = time.perf_counter()
+    idp, pheno, planted = phewas_tables(root, n, m, k)
+    t_tables = time.perf_counter() - t0
+    has_mpl = subprocess.run([sys.executable, "-c", "import matplotlib"],
+                             capture_output=True, timeout=120).returncode == 0
+    t_mpl = 0.0
+    if has_mpl:
+        t0 = time.perf_counter()
+        import matplotlib
+        matplotlib.use("Agg")
+        from matplotlib import font_manager
+        font_manager.findfont("DejaVu Sans")   # builds the font cache
+        t_mpl = time.perf_counter() - t0
+    seconds, returned = {}, {}
+    real = {name: getattr(cli, name) for name in PHEWAS_STEPS}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            returned[name] = out
+            return out
+        return run
+
+    for name, fn in real.items():
+        if name == "manhattan_plot" and not has_mpl:
+            fn = (lambda *a, **kw: None)
+        setattr(cli, name, timed(name, fn))
+    out = os.path.join(root, "out")
+    t0 = time.perf_counter()
+    try:
+        cli.main(["--idp_csv", idp, "--pheno_csv", *pheno, "--output_dir",
+                  out])
+    finally:
+        for name, fn in real.items():
+            setattr(cli, name, fn)
+    wall = time.perf_counter() - t0
+    p_bonf, p_fdr = returned["significance_thresholds"]
+    M, N = returned["univariate_correlation"][1].shape
+    hits = pd.read_csv(os.path.join(out, "top_hits.csv"))
+    top = hits.sort_values("p").head(len(planted))
+    want = {(i, int(c.split("-")[0])) for i, c in planted}
+    got = set(zip(top["IDP"], top["FieldID"]))
+    print(f"  PheWAS ({'whole CLI' if has_mpl else 'CLI steps without the '
+          'Manhattan plot: matplotlib absent on this machine (the plots '
+          'extra)'}): {n} subjects x {m} fields x {k} IDPs; tables written "
+          f"in {t_tables:.2f} s, font cache {t_mpl:.2f} s; CLI {wall:.2f} s "
+          "(GPU machine's host), by step "
+          + ", ".join(f"{s} {seconds.get(s, 0.0):.3f}" for s in PHEWAS_STEPS)
+          + f", reading and writing {wall - sum(seconds.values()):.3f} s; "
+          f"M x N = {M} x {N}; Bonferroni p {p_bonf:.3e}, FDR p "
+          f"{p_fdr:.3e}; top hits {sorted(got)}")
+    if got != want:
+        raise AssertionError(f"PheWAS: top hits {sorted(got)}, planted "
+                             f"{sorted(want)}")
+
+
+def slice_phase(card, work, truth, strain, register):
+    """Phase 11: the demo, the device trace, both-directions strain, the
+    checkpoint audit and PheWAS.  Returns the kernels' launches in the
+    demo and in the both-directions strain run."""
+    t_phase = time.perf_counter()
+    demo = demo_phase(card, work, truth)
+    trace_phase(card, work, sorted(truth)[0])
+    both = both_directions_phase(card, work, strain, register)
+    checkpoint_phase(work)
+    phewas_phase(card, work)
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return demo, both
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2595,11 +3079,15 @@ def main() -> int:
         root, ao_truth, prop_launches = propagation_phase(card, work, bf)
         ao_train_phase(card, root, ao_truth, work)
         packed_phase(card, engine_mod, deploy)
-        # this slice's path: raw DICOM zips -> NIfTI -> the full cohort
+        # raw DICOM zips -> NIfTI -> the full cohort
         ingest_launches = ingestion_phase(card, work)
+        # this slice's path: the demo, the trace, both-directions strain,
+        # the checkpoint audit and PheWAS
+        demo_launches, both_launches = slice_phase(card, work, truth, strain,
+                                                   register)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[11/11] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[12/12] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -2610,15 +3098,18 @@ def main() -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None,
         "path": "cohort, 1 worker",
-        "ingestion": {"launches": ingest_launches["fused_head"]}}]
+        "ingestion": {"launches": ingest_launches["fused_head"]},
+        "demo": {"launches": demo_launches["fused_head"]}}]
     # the B-spline kernels: launches on the cohort's path and times at the
     # SA strain path's 96^2 (the series of earlier slices), and under
     # "propagation" the aortic propagation's launches and times at its
-    # shape (pairs, crop X, Y, lattice, spacing)
+    # shape (pairs, crop X, Y, lattice, spacing), under "demo" the demo's
+    # launches, under "both_directions" the both-directions strain run's
+    # launches and the times at its B = 294, 96^2
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name in ("bspline_field", "bspline_field_adjoint"):
-        t, tp = spline["sa"][name], spline["propagation"][name]
+        t, tp, tb2 = (spline[k][name] for k in ("sa", "propagation", "both"))
         entries.append({
             "name": name, "route": "cuda",
             "source": "ukbb_cardiac_tpu_torch/csrc/bspline_field.cu",
@@ -2629,7 +3120,11 @@ def main() -> int:
             "ingestion": {"launches": ingest_launches[name]},
             "propagation": {"launches": prop_launches[name],
                             "shape": spline["propagation"]["shape"],
-                            **{k: tp[k] for k in keys}}})
+                            **{k: tp[k] for k in keys}},
+            "demo": {"launches": demo_launches[name]},
+            "both_directions": {"launches": both_launches[name],
+                                "shape": spline["both"]["shape"],
+                                **{k: tb2[k] for k in keys}}})
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,7 @@ from ukbb_cardiac_tpu.ops.crop import pad_to_size as jpad_to_size
 from ukbb_cardiac_tpu.parallel import run_cohort_full as jax_run_cohort_full
 from ukbb_cardiac_tpu.phenotype import aorta as jaorta
 from ukbb_cardiac_tpu.phenotype import qc as jqc
-from ukbb_cardiac_tpu_torch.ckpt import convert
+from ukbb_cardiac_tpu_torch.ckpt import convert, tf_reader
 from ukbb_cardiac_tpu_torch.ckpt.store import load_model
 from ukbb_cardiac_tpu_torch.cli import deploy_network_ao, run_cohort
 from ukbb_cardiac_tpu_torch.cli import eval_aortic_area as tcli_aorta
@@ -209,7 +209,15 @@ def test_window_weights_match_jax():
                                       jdeploy_ao.window_weights(R, r))
 
 
-def test_deploy_refusals(tmp_path):
+class _Converted(Exception):
+    pass
+
+
+def _refuse_conversion(prefix):
+    raise _Converted(prefix)
+
+
+def test_deploy_refusals(tmp_path, monkeypatch):
     engine = tdeploy_ao.load_aortic_engine(AO_BUNDLE, "cpu")
     with pytest.raises(ValueError, match="exceeds"):
         engine.segment_cine_dispatch(np.zeros((300, 10, 1, 2), np.int16))
@@ -217,7 +225,11 @@ def test_deploy_refusals(tmp_path):
         engine.segment_subjects_sharded(np.zeros((2, 8, 8, 1, 2)), None)
     with pytest.raises(ValueError, match="frame-wise"):
         tdeploy_ao.deploy_subject_ed_es_ao(engine, str(tmp_path))
-    with pytest.raises(SystemExit):
+    # a TF checkpoint prefix is converted first (tests/test_torch_tf.py
+    # converts real ones): the CLI hands it to the converter
+    monkeypatch.setattr(tf_reader, "convert_tf_checkpoint",
+                        _refuse_conversion)
+    with pytest.raises(_Converted, match="model.ckpt"):
         deploy_network_ao.main(["--data_dir", str(tmp_path), "--model_path",
                                 "model.ckpt", "--device", "cpu"])
 

@@ -46,7 +46,7 @@ from ukbb_cardiac_tpu.ops import augment as jaug
 from ukbb_cardiac_tpu.ops import resample as jres
 from ukbb_cardiac_tpu.train import ao as jao
 from ukbb_cardiac_tpu.train import steps as jsteps
-from ukbb_cardiac_tpu_torch.ckpt import convert
+from ukbb_cardiac_tpu_torch.ckpt import convert, tf_reader
 from ukbb_cardiac_tpu_torch.cli import train_network_ao as tcli
 from ukbb_cardiac_tpu_torch.infer import deploy_ao as tdeploy
 from ukbb_cardiac_tpu_torch.models import convlstm as tconvlstm
@@ -627,7 +627,8 @@ def test_pool_step_matches_host_step(ao_dataset, models):
 
 # ------------------------------------------- bundles, the CLI, deploy
 
-def test_restore_pretrained_unet_from_a_jax_bundle(tmp_path, models):
+def test_restore_pretrained_unet_from_a_jax_bundle(tmp_path, models,
+                                                   monkeypatch):
     cfg, ucfg, params, state, names = models["UNet"]
     path = str(tmp_path / "unet.npz")
     jstore.save_model(path, "unet", ucfg, names, params, state)
@@ -636,8 +637,16 @@ def test_restore_pretrained_unet_from_a_jax_bundle(tmp_path, models):
     want = convert.unet_from_jax(params, state, names, _pucfg(ucfg))
     for k, v in want.state_dict().items():
         assert torch.equal(net.unet.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="A14"):
-        tao.restore_pretrained_unet(net, str(tmp_path / "model.ckpt-100"))
+    # a TF checkpoint prefix goes through the converter, then the bundle
+    # it wrote is restored (tests/test_torch_tf.py converts real ones)
+    converted = []
+    monkeypatch.setattr(tf_reader, "convert_tf_checkpoint",
+                        lambda prefix: converted.append(prefix) or path)
+    net = _port_net("UNet-LSTM", models)
+    tao.restore_pretrained_unet(net, str(tmp_path / "model.ckpt-100"))
+    assert converted == [str(tmp_path / "model.ckpt-100")]
+    for k, v in want.state_dict().items():
+        assert torch.equal(net.unet.state_dict()[k], v), k
 
 
 def _train_cli(ao_dataset, tmp_path, model, *extra):
@@ -695,10 +704,21 @@ def test_cli_two_phases_then_deploy(ao_dataset, tmp_path):
     assert segs["jax"] == segs["port"]
 
 
-def test_cli_refusals(ao_dataset, tmp_path):
+class _Converted(Exception):
+    pass
+
+
+def _refuse_conversion(prefix):
+    raise _Converted(prefix)
+
+
+def test_cli_refusals(ao_dataset, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="A14"):
         _train_cli(ao_dataset, tmp_path, "UNet", "--mesh_devices", "2")
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a TF --model_path reaches the converter (no longer refused)
+    monkeypatch.setattr(tf_reader, "convert_tf_checkpoint",
+                        _refuse_conversion)
+    with pytest.raises(_Converted, match="model.ckpt-20000"):
         _train_cli(ao_dataset, tmp_path, "UNet-LSTM", "--model_path",
                    str(tmp_path / "model.ckpt-20000"))
     with pytest.raises(ValueError, match="model_path"):

@@ -641,3 +641,78 @@ def test_converted_subject_runs_the_cohort_on_card(card, tmp_path):
     np.testing.assert_array_equal(segs["converted"], segs["phantom"])
     assert tables["converted"] == tables["phantom"]
     assert {1, 2, 3} <= set(np.unique(segs["converted"]))
+
+
+def _deployed_sax_subject(root, card, T=6):
+    """``_sax_cine`` as subject ``1`` under ``root``, deployed on the card
+    with the trained FCN_sa bundle (seg_sa, sa_ED, seg_sa_ED written)."""
+    from ukbb_cardiac_tpu_torch.infer.deploy import deploy_dataset
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    d = os.path.join(root, "1")
+    os.makedirs(d)
+    affine = np.diag([1.8, 1.8, 10.0, 1.0])
+    nifti.save(nifti.Nifti1Image(_sax_cine(Z=6, T=T), affine),
+               os.path.join(d, "sa.nii.gz"))
+    deploy_dataset(os.path.join(WEIGHTS, "FCN_sa.npz"), root, device=card)
+    return d
+
+
+@pytest.mark.cuda
+def test_deploy_trace_on_card(card, tmp_path):
+    """``deploy_network --trace_dir`` writes a Chrome trace of the deploy
+    that names both kernels of the fused head."""
+    import glob
+
+    from ukbb_cardiac_tpu_torch.cli import deploy_network
+    from ukbb_cardiac_tpu_torch.io import nifti
+
+    d = tmp_path / "data" / "1"
+    d.mkdir(parents=True)
+    nifti.save(nifti.Nifti1Image(_sax_cine(Z=2, T=4),
+                                 np.diag([1.8, 1.8, 10.0, 1.0])),
+               str(d / "sa.nii.gz"))
+    before = tfh.fused_head.launches
+    deploy_network.main(["--data_dir", str(tmp_path / "data"),
+                         "--model_path", os.path.join(WEIGHTS, "FCN_sa.npz"),
+                         "--trace_dir", str(tmp_path / "trace")])
+    assert tfh.fused_head.launches > before
+    assert (d / "seg_sa.nii.gz").exists()
+    traces = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    assert len(traces) == 1
+    text = open(traces[0]).read()
+    assert "head_kernel" in text and "coarse_kernel" in text
+
+
+@pytest.mark.cuda
+def test_both_directions_strain_on_card_matches_cpu(card, tmp_path):
+    """The both-directions SA strain (2(T-1) pairs a slice) on the card
+    against the port's CPU path, within the CPU tests' bounds for this
+    scheme (tests/test_torch_strain_both.py: 5.2 pp per segment, 0.5
+    Global, warp-Dice 0.005); both B-spline kernels launch on the card."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.phenotype import strain
+
+    d = _deployed_sax_subject(str(tmp_path / "data"), card)
+    cfg = tr.RegConfig.cine_2d_motion()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        motion = tmp_path / dev
+        motion.mkdir()
+        before = (bspline_field.launches, bspline_field.adjoint_launches)
+        dice = strain.cine_2d_sa_motion_and_strain_analysis(
+            d, str(motion), str(tmp_path / f"{dev}_strain"), cfg,
+            eval_dice=True, device=dev, inverse_consistent=False)
+        launched = (bspline_field.launches - before[0],
+                    bspline_field.adjoint_launches - before[1])
+        assert (min(launched) > 0) == (dev == "cuda"), launched
+        out[dev] = (dice.values, {k: pd.read_csv(
+            tmp_path / f"{dev}_strain_{k}.csv", index_col=0).values
+            for k in ("radial", "circum")})
+    for k in ("radial", "circum"):
+        diff = np.abs(out["cuda"][1][k] - out["cpu"][1][k])
+        assert np.nanmax(diff) <= 5.2, (k, np.nanmax(diff))
+        assert diff[-1].max() <= 0.5, (k, diff[-1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=0.005,
+                               rtol=0)

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``ukbb_cardiac_tpu_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package; and its entry
-points refuse to run without a card unless asked for the CPU."""
+``chip_smoke.py``, imports ``jax`` or the JAX package, nor ``tensorflow``
+or ``matplotlib`` when it is imported (the checkpoint converter and the
+Manhattan plot import them when called); and its entry points refuse to
+run without a card unless asked for the CPU."""
 
 import os
 import subprocess
@@ -42,6 +44,9 @@ _PROBE = textwrap.dedent("""
     import chip_smoke
     leaked = sorted(m for m in sys.modules if banned(m))
     assert not leaked, leaked
+    lazy = sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("tensorflow", "matplotlib"))
+    assert not lazy, lazy
     print(" ".join(names))
 """)
 
@@ -101,6 +106,18 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.cli.convert_data",
     "ukbb_cardiac_tpu_torch.cli.prepare_data",
     "ukbb_cardiac_tpu_torch.cli.download_data",
+    # the ninth slice's
+    "ukbb_cardiac_tpu_torch.assoc",
+    "ukbb_cardiac_tpu_torch.assoc.fdr",
+    "ukbb_cardiac_tpu_torch.assoc.phewas",
+    "ukbb_cardiac_tpu_torch.cli.perform_phenome_wide_association",
+    "ukbb_cardiac_tpu_torch.ckpt.tf_reader",
+    "ukbb_cardiac_tpu_torch.ckpt.fingerprint",
+    "ukbb_cardiac_tpu_torch.cli.verify_checkpoint",
+    "ukbb_cardiac_tpu_torch.cli.demo_pipeline",
+    "ukbb_cardiac_tpu_torch.utils",
+    "ukbb_cardiac_tpu_torch.utils.timing",
+    "ukbb_cardiac_tpu_torch.utils.cache",
 }
 
 
@@ -110,7 +127,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 66
+    assert len(walked) >= 77
     assert SLICE_MODULES <= walked, SLICE_MODULES - walked
 
 
@@ -136,6 +153,9 @@ def test_resolve_device_cpu_turns_tf32_off(monkeypatch):
     ("train_network_ao", ["--dataset_dir", "{d}", "--model", "UNet-LSTM",
                           "--model_path", "{d}/unet.npz"]),
     ("train_network", ["--dataset_dir", "{d}"]),
+    ("demo_pipeline", ["--data_dir", "{d}", "--model_dir", "{d}",
+                       "--csv_dir", "{d}/1"]),
+    ("verify_checkpoint", ["--model_path", "{d}/m.npz"]),
 ])
 def test_cli_refuses_without_a_card(cli, argv, tmp_path, monkeypatch):
     """Without --device cpu the CLIs raise when no card is present, before

@@ -4,9 +4,10 @@ the card.
 Every flag of the JAX CLI (``ukbb_cardiac_tpu/cli/train_network_ao.py``)
 on the port's trainer (``train/ao.py``), plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given).
-``--model_path`` takes an .npz bundle only (a TF checkpoint raises,
-ROADMAP A14), and ``--mesh_devices`` above 1 raises: training over
-several cards is not ported.
+``--model_path`` takes an .npz bundle or a TF checkpoint prefix (converted
+first by ``ckpt/tf_reader.py``, which needs tensorflow on the host), and
+``--mesh_devices`` above 1 raises: training over several cards is not
+ported (ROADMAP A14).
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.train_network_ao \
@@ -46,7 +47,8 @@ def main(argv=None):
     parser.add_argument("--log_dir", default="log")
     parser.add_argument("--checkpoint_dir", default="model")
     parser.add_argument("--model_path", default="",
-                        help="Pre-trained UNet bundle (.npz) for UNet-LSTM "
+                        help="Pre-trained UNet bundle (.npz), or a TF "
+                             "checkpoint prefix to convert, for UNet-LSTM "
                              "phase 2.")
     add_bool_flag(parser, "z_score", True)
     add_bool_flag(parser, "bidirectional", True)

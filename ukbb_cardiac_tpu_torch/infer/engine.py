@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ukbb_cardiac_tpu_torch import native
 from ukbb_cardiac_tpu_torch.infer import transfer
 from ukbb_cardiac_tpu_torch.models.fcn import FCN, nchw
 from ukbb_cardiac_tpu_torch.models.fused_head import (HeadWeights,
@@ -48,7 +49,8 @@ from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity_torch,
 def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
     """Unpack ``bits``-wide fields (low field first) from a uint8 byte
     array into ``n`` uint8 values — the host-side inverse of
-    :func:`pack_bits`."""
+    :func:`pack_bits`, in numpy: the plain version of the readback's
+    ``native.unpack_bits``."""
     if bits not in (1, 2, 4):
         raise ValueError(f"bits must be 1, 2 or 4, got {bits}")
     packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
@@ -139,8 +141,10 @@ class PendingSegmentation:
             end.synchronize()
             self.device_ms = start.elapsed_time(end)
         n = int(np.prod(self._shape))
-        return unpack_bits(self._packed.numpy(), self._bits,
-                           n).reshape(self._shape)
+        # one native pass through a per-byte table (the JAX engine's);
+        # the numpy unpack builds a (bytes, 8 / bits) temporary
+        return native.unpack_bits(self._packed.numpy(), self._bits,
+                                  n).reshape(self._shape)
 
 
 _HOST_DTYPES = (np.float32, np.int16, np.uint8, np.int8, np.int32)

@@ -15,11 +15,12 @@ go up as one uint8 buffer:
   fewer bytes than the plane pack.
 
 The planner and the packer (:func:`plan_pack`, :func:`pack_buffer`) are
-the JAX package's numpy code (its optional native packer is not copied;
-the numpy path writes the same bytes).  :func:`unpack_torch` is
-``unpack_jax`` as tensor ops on the device: integer shifts, ors and a
-cumsum, so the rebuilt cine is bit-identical to the raw one and so are
-the labels.
+the JAX package's: the planner in numpy, the plane split in one native
+pass (``native.pack_lo_hi_i16_into``; its numpy version, which writes
+the same bytes, stays as ``pack_buffer(..., plain=True)``).
+:func:`unpack_torch` is ``unpack_jax`` as tensor ops on the device:
+integer shifts, ors and a cumsum, so the rebuilt cine is bit-identical
+to the raw one and so are the labels.
 
 Packing costs host time, so it pays only on a slow link: the engines pack
 while :class:`BandwidthTracker` counts the link as degraded (an EMA below
@@ -39,6 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ukbb_cardiac_tpu_torch import native
 
 # Pack below this observed host-to-device bandwidth, MB/s
 PACK_BELOW_MBPS = 400.0
@@ -235,16 +238,22 @@ def _delta_width(a16: np.ndarray) -> Optional[int]:
     return _width_for(max(2 * int(d.max()), -2 * int(d.min()) - 1, 0))
 
 
-def _pack_section_into(vals: np.ndarray, hi_bits: int,
-                       out: np.ndarray) -> None:
+def _pack_section_into(vals: np.ndarray, hi_bits: int, out: np.ndarray,
+                       plain: bool = False) -> None:
     """Plane-split ``vals`` (non-negative int16/uint16, flat) into the
-    ``out`` uint8 slice: [lo (k)] + [hi packed] when hi_bits > 0."""
+    ``out`` uint8 slice: [lo (k)] + [hi packed] when hi_bits > 0.  The
+    split runs in one native pass (``native.pack_lo_hi_i16_into``, as
+    the JAX package's packer), or with ``plain`` in numpy, the plain
+    version the tests and ``chip_smoke.py`` hold it to."""
     k = vals.size
     vals = np.ascontiguousarray(vals)
     if vals.dtype == np.uint16:
         vals = vals.view(np.int16)  # exact: only values < 4096 are packed
     if hi_bits == 0:
         np.copyto(out[:k], vals.astype(np.uint8))  # truncating == exact
+        return
+    if not plain:
+        native.pack_lo_hi_i16_into(vals, hi_bits, out[:k], out[k:])
         return
     lo = vals.astype(np.uint8)
     hi = (vals >> 8).astype(np.uint8)
@@ -260,11 +269,13 @@ def _pack_section_into(vals: np.ndarray, hi_bits: int,
     np.copyto(out[k:], acc)
 
 
-def pack_buffer(image: np.ndarray, plan: PackPlan) -> np.ndarray:
-    """Pack the whole array into ONE uint8 buffer per ``plan``."""
+def pack_buffer(image: np.ndarray, plan: PackPlan,
+                plain: bool = False) -> np.ndarray:
+    """Pack the whole array into ONE uint8 buffer per ``plan`` (natively;
+    in numpy with ``plain``: the same bytes)."""
     buf = np.empty(packed_nbytes(plan), np.uint8)
     if plan.mode == "plane":
-        _pack_section_into(image.reshape(-1), plan.hi_bits, buf)
+        _pack_section_into(image.reshape(-1), plan.hi_bits, buf, plain)
         return buf
     T = plan.shape[-1]
     a = image.reshape(-1, T)
@@ -274,8 +285,8 @@ def pack_buffer(image: np.ndarray, plan: PackPlan) -> np.ndarray:
     d = np.diff(a, axis=-1)  # int16-exact: |d| <= 4095
     zz = ((d << 1) ^ (d >> 15)).reshape(-1)
     o = _section_nbytes(plan.m, plan.f0_hi_bits)
-    _pack_section_into(f0, plan.f0_hi_bits, buf[:o])
-    _pack_section_into(zz, plan.hi_bits, buf[o:])
+    _pack_section_into(f0, plan.f0_hi_bits, buf[:o], plain)
+    _pack_section_into(zz, plan.hi_bits, buf[o:], plain)
     return buf
 
 

@@ -1,8 +1,13 @@
 """The port's native host ops: ``native/hostops.cc``, bound with ctypes.
 
-A copy of ``ukbb_cardiac_tpu/native/__init__.py`` for the entry points
-the DICOM reader uses: :func:`dicom_scan`, :func:`jpeg_sof3_decode` and
-:func:`jpegls_decode`.  The library is built with ``g++ -O3 -shared
+A copy of ``ukbb_cardiac_tpu/native/__init__.py``: the DICOM reader's
+:func:`dicom_scan`, :func:`jpeg_sof3_decode` and :func:`jpegls_decode`;
+the connected-component passes on 2D masks that ``ops/cc.py`` routes
+through (:func:`largest_cc_2d`, :func:`count_significant_cc_2d`,
+:func:`remove_small_cc_2d`) and :func:`label_areas_per_frame`; the
+transfer packers (:func:`unpack_bits` for the engines' label readback,
+:func:`pack_lo_hi_i16` / :func:`pack_lo_hi_i16_into` for the packed
+up-leg of ``infer/transfer.py``).  The library is built with ``g++ -O3 -shared
 -fPIC`` (not ``-march=native``: a library built on one host and loaded
 on another CPU would fault at call time) at first use, into
 ``build/native/`` at the root of the checkout (listed in
@@ -12,7 +17,10 @@ the compiler writes a temporary file of its own, which replaces the
 target atomically.  Nothing here runs at import time.
 
 A build that fails raises, with the compiler's output: there is no
-pure-Python fallback for a missing toolchain.  A stream the native code
+pure-Python fallback for a missing toolchain (the JAX package's
+"unavailable" returns are not copied).  The numpy and scipy versions of
+the CC passes and the packers stay beside their callers as the plain
+versions the tests hold these to.  A stream the native code
 declines (``dicom_scan`` returns None; a JPEG decoder declines an image
 larger than its working buffer) still goes to the Python decoder, as in
 the JAX package: that is what the reference computes, not a fallback.
@@ -80,7 +88,22 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            i8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+            i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
             i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            i32, i64 = ctypes.c_int32, ctypes.c_int64
+            lib.largest_cc_2d.restype = i64
+            lib.largest_cc_2d.argtypes = [i8p, i32, i32, i32, i8p]
+            lib.count_significant_cc_2d.restype = i32
+            lib.count_significant_cc_2d.argtypes = [i8p, i32, i32, i32, i64]
+            lib.remove_small_cc_2d.restype = None
+            lib.remove_small_cc_2d.argtypes = [i8p, i32, i32, i32, i64, i8p]
+            lib.label_areas_per_frame.restype = None
+            lib.label_areas_per_frame.argtypes = [i16p, i64, i32, i32, i64p]
+            lib.unpack_bits.restype = None
+            lib.unpack_bits.argtypes = [i8p, i64, i32, i8p, i64]
+            lib.pack_lo_hi_i16.restype = None
+            lib.pack_lo_hi_i16.argtypes = [i16p, i64, i32, i8p, i8p]
             u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
             i32_ref = ctypes.POINTER(ctypes.c_int32)
             lib.dicom_scan.restype = ctypes.c_int64
@@ -141,3 +164,114 @@ def dicom_scan(buf: bytes):
     if k < 0:
         return None
     return out[:k]
+
+
+def _require_2d(binary) -> np.ndarray:
+    b = np.ascontiguousarray(np.asarray(binary).astype(np.uint8))
+    if b.ndim != 2:
+        raise ValueError(f"native CC passes take 2D masks, got shape "
+                         f"{b.shape} (ops/cc.py takes 3D masks to scipy)")
+    return b
+
+
+def largest_cc_2d(binary, connectivity: int = 1) -> np.ndarray:
+    """Largest connected component of a 2D mask as a bool mask; of
+    components of equal size, the first in raster order (scipy's
+    ``argmax`` over its labels)."""
+    lib = get_lib()
+    b = _require_2d(binary)
+    out = np.empty_like(b)
+    # the pass is orientation-agnostic: (nx = columns, ny = rows)
+    lib.largest_cc_2d(b, np.int32(b.shape[1]), np.int32(b.shape[0]),
+                      np.int32(connectivity), out)
+    return out.astype(bool)
+
+
+def count_significant_cc_2d(binary, pixel_thres: int = 10,
+                            connectivity: int = 2) -> int:
+    """Number of components of a 2D mask larger than ``pixel_thres``."""
+    lib = get_lib()
+    b = _require_2d(binary)
+    return int(lib.count_significant_cc_2d(
+        b, np.int32(b.shape[1]), np.int32(b.shape[0]),
+        np.int32(connectivity), np.int64(pixel_thres)))
+
+
+def remove_small_cc_2d(binary, thres: int = 10,
+                       connectivity: int = 1) -> np.ndarray:
+    """uint8 mask of the components of a 2D mask with at least ``thres``
+    pixels."""
+    lib = get_lib()
+    b = _require_2d(binary)
+    out = np.empty_like(b)
+    lib.remove_small_cc_2d(b, np.int32(b.shape[1]), np.int32(b.shape[0]),
+                           np.int32(connectivity), np.int64(thres), out)
+    return out
+
+
+def label_areas_per_frame(volume, n_labels: int) -> np.ndarray:
+    """Per-frame per-label voxel counts of an (X, Y, Z, T) label volume
+    → (T, n_labels) int64."""
+    lib = get_lib()
+    volume = np.asarray(volume)
+    if volume.min() < np.iinfo(np.int16).min or \
+            volume.max() > np.iinfo(np.int16).max:
+        raise ValueError("label values exceed int16 range")
+    v = np.ascontiguousarray(
+        np.transpose(volume, (3, 0, 1, 2)).astype(np.int16))
+    T = v.shape[0]
+    counts = np.empty((T, n_labels), dtype=np.int64)
+    lib.label_areas_per_frame(v.reshape(-1), np.int64(v.size // T),
+                              np.int32(T), np.int32(n_labels),
+                              counts.reshape(-1))
+    return counts
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (1, 2, 4):
+        raise ValueError(f"bits must be 1, 2 or 4, got {bits}")
+
+
+def unpack_bits(packed, bits: int, n: int) -> np.ndarray:
+    """Unpack ``bits``-wide fields (low field first) from a uint8 byte
+    array into ``n`` uint8 values, in one pass through a per-byte table:
+    the host-side inverse of the engines' device pack
+    (``infer/engine.py::pack_bits``)."""
+    _check_bits(bits)
+    packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
+    if n > packed.size * (8 // bits):
+        raise ValueError(f"{packed.size} packed bytes hold at most "
+                         f"{packed.size * (8 // bits)} values, asked for {n}")
+    out = np.empty(n, dtype=np.uint8)
+    get_lib().unpack_bits(packed, np.int64(packed.size), np.int32(bits),
+                          out, np.int64(n))
+    return out
+
+
+def pack_lo_hi_i16(piece, hi_bits: int):
+    """One-pass plane split of a non-negative int16 array (values below
+    2^(8 + hi_bits)): (lo uint8, hi uint8 packed ``hi_bits`` a value, low
+    field first) — the up-leg's pack (``infer/transfer.py``)."""
+    _check_bits(hi_bits)
+    piece = np.ascontiguousarray(piece, dtype=np.int16).reshape(-1)
+    lo = np.empty(piece.size, dtype=np.uint8)
+    hi = np.empty(-(-piece.size * hi_bits // 8), dtype=np.uint8)
+    pack_lo_hi_i16_into(piece, hi_bits, lo, hi)
+    return lo, hi
+
+
+def pack_lo_hi_i16_into(piece, hi_bits: int, lo_out: np.ndarray,
+                        hi_out: np.ndarray) -> None:
+    """:func:`pack_lo_hi_i16` into caller-provided contiguous uint8
+    slices (of the one transfer buffer): ``lo_out`` holds ``piece.size``
+    bytes, ``hi_out`` at least ``ceil(size * hi_bits / 8)``."""
+    _check_bits(hi_bits)
+    piece = np.ascontiguousarray(piece, dtype=np.int16).reshape(-1)
+    n = piece.size
+    if (lo_out.dtype != np.uint8 or hi_out.dtype != np.uint8
+            or not lo_out.flags.c_contiguous
+            or not hi_out.flags.c_contiguous
+            or lo_out.size < n or hi_out.size < (n * hi_bits + 7) // 8):
+        raise ValueError("pack_lo_hi_i16_into: bad output buffers")
+    get_lib().pack_lo_hi_i16(piece, np.int64(n), np.int32(hi_bits),
+                             lo_out, hi_out)

@@ -2,14 +2,15 @@
 // ukbb_cardiac_tpu/native/hostops.cc (the port imports nothing of the JAX
 // package, so it keeps its own).
 //
-// The port binds dicom_scan (the DICOM element walker for the Biobank
-// attribute subset), jpeg_sof3_decode (JPEG lossless, SOF3) and
-// jpegls_decode (JPEG-LS) through ctypes (native/__init__.py), which
-// builds this file with g++ at first use.  The connected-component
-// entry points (cc_label_2d, largest_cc_2d, count_significant_cc_2d,
-// remove_small_cc_2d, label_areas_per_frame) and the transfer packers
-// (pack_lo_hi_i16, unpack_bits) are compiled but not bound: the port's
-// QC gates take ops/cc.py's scipy path, and its packer is numpy.
+// The port binds every entry point through ctypes (native/__init__.py),
+// which builds this file with g++ at first use: dicom_scan (the DICOM
+// element walker for the Biobank attribute subset), jpeg_sof3_decode
+// (JPEG lossless, SOF3) and jpegls_decode (JPEG-LS) for ingestion; the
+// connected-component passes over cc_label_2d (largest_cc_2d,
+// count_significant_cc_2d, remove_small_cc_2d) for the 2D masks of
+// ops/cc.py, and label_areas_per_frame; the transfer packers (pack_lo_hi_i16 for
+// the packed up-leg of infer/transfer.py, unpack_bits for the engines'
+// label readback).
 
 #include <cstdint>
 #include <cstring>

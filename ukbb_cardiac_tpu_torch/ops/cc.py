@@ -1,11 +1,15 @@
-"""Connected-component utilities (scipy).
+"""Connected-component utilities.
 
-The port's copy of ``ukbb_cardiac_tpu/ops/cc.py``, scipy path only: the
-JAX package routes 2D masks through its native union-find library when
-one is built and falls back to these same scipy calls, which give the
-same components.  Reference semantics: ``common/image_utils.py:227-249``
-(``get_largest_cc``, ``remove_small_cc``) and the QC fragmentation
-criterion (``cardiac_utils.py:1629-1643``).
+The port's copy of ``ukbb_cardiac_tpu/ops/cc.py``.  2D masks (the QC
+gates' per-frame passes, O(labels x frames) per subject) go through the
+port's native union-find library (``native/hostops.cc``), whose build
+raises if it fails; 3D masks go to scipy.  The scipy versions
+(``*_scipy``) stay here as the plain versions the tests hold the native
+path to: the same components, the same first-in-raster-order choice
+among equal largest ones.  Reference semantics:
+``common/image_utils.py:227-249`` (``get_largest_cc``,
+``remove_small_cc``) and the QC fragmentation criterion
+(``cardiac_utils.py:1629-1643``).
 """
 
 from __future__ import annotations
@@ -13,10 +17,20 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
+from ukbb_cardiac_tpu_torch import native
+
 
 def get_largest_cc(binary):
     """Largest foreground connected component as a boolean mask
     (4-connectivity, matching scipy.ndimage.label defaults)."""
+    binary = np.asarray(binary)
+    if binary.ndim == 2:
+        return native.largest_cc_2d(binary, connectivity=1)
+    return get_largest_cc_scipy(binary)
+
+
+def get_largest_cc_scipy(binary):
+    """:func:`get_largest_cc` through ``scipy.ndimage.label``."""
     binary = np.asarray(binary)
     cc, n_cc = ndimage.label(binary)
     if n_cc == 0:
@@ -40,6 +54,15 @@ def label_cc(binary, connectivity=1):
 def count_significant_cc(binary, pixel_thres=10, connectivity=2):
     """Number of connected components larger than ``pixel_thres`` pixels
     (the reference's fragmentation criterion, ``cardiac_utils.py:1629-1643``)."""
+    binary = np.asarray(binary)
+    if binary.ndim == 2:
+        return native.count_significant_cc_2d(binary, pixel_thres,
+                                              connectivity)
+    return count_significant_cc_scipy(binary, pixel_thres, connectivity)
+
+
+def count_significant_cc_scipy(binary, pixel_thres=10, connectivity=2):
+    """:func:`count_significant_cc` through ``scipy.ndimage.label``."""
     cc, n_cc = label_cc(binary, connectivity)
     if n_cc == 0:
         return 0
@@ -49,6 +72,19 @@ def count_significant_cc(binary, pixel_thres=10, connectivity=2):
 
 def remove_small_cc(binary, thres=10):
     """Zero out connected components smaller than `thres` pixels."""
+    binary = np.asarray(binary)
+    if binary.ndim == 2:
+        # the native pass returns the kept mask; the input's values are
+        # kept, as the reference copies its input (image_utils.py:244)
+        kept = native.remove_small_cc_2d(binary, thres, connectivity=1)
+        out = np.copy(binary)
+        out[kept == 0] = 0
+        return out
+    return remove_small_cc_scipy(binary, thres)
+
+
+def remove_small_cc_scipy(binary, thres=10):
+    """:func:`remove_small_cc` through ``scipy.ndimage.label``."""
     binary = np.asarray(binary)
     cc, n_cc = ndimage.label(binary)
     if n_cc == 0:

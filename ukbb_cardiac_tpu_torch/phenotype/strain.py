@@ -7,7 +7,8 @@ population of a subject is ONE batched registration on the card
 blending of the motion fields run there too, and only the contour-point
 displacements and the warp-Dice rows come back to the host:
 
-  pairs (3 slices x T)  →  batched FFD register
+  pairs (3 slices x T, or 3 x 2(T-1) in both directions)
+  →  batched FFD register
   → per-slice forward/backward composition (dense-field compose)
   → time-weighted forward/backward blending (the ``average_3d_ffd`` sum)
   → ED contour points pushed through the per-frame fields
@@ -98,23 +99,31 @@ def bucket_hw(X: int, Y: int, bucket: int = _HW_BUCKET):
     return (-(-X // bucket) * bucket, -(-Y // bucket) * bucket)
 
 
-def combine_fields(fields: torch.Tensor, Z: int, T: int) -> torch.Tensor:
+def combine_fields(fields: torch.Tensor, Z: int, T: int,
+                   inverse_consistent: bool = True) -> torch.Tensor:
     """Per-slice forward/backward composition and blending of the dense
     pair fields → ED→fr fields (Z, T, X, Y, 2) (``cardiac_utils.py:881-936``;
-    the JAX ``_field_programs`` combine, inverse-consistent scheme).
+    the JAX ``_field_programs`` combine).
 
-    ``fields`` is (Z * T, X, Y, 2): per slice the T-1 forward pairs
-    (fr-1 → fr), then the wrap pair 0 → T-1."""
+    ``fields`` holds per slice the T-1 forward pairs (fr-1 → fr), then
+    the backward chain's pairs: with ``inverse_consistent`` the wrap pair
+    0 → T-1 alone ((Z * T, X, Y, 2); the pairs (fr+1 → fr) are the
+    forward pairs inverted), else the T-1 registered pairs
+    ((fr+1) % T → fr for fr = T-1 .. 1; (Z * 2(T-1), X, Y, 2))."""
     X, Y = fields.shape[1:3]
-    per_slice = fields.reshape(Z, T, X, Y, 2)
+    per = T if inverse_consistent else 2 * (T - 1)
+    per_slice = fields.reshape(Z, per, X, Y, 2)
     fwd_pairs = per_slice[:, :T - 1]            # entry fr-1 maps fr-1 -> fr
-    wraps = per_slice[:, T - 1]                 # 0 -> T-1 per slice
-    # backward chain pairs: (0->T-1), then (fr+1->fr) = inverse of the
-    # forward pair (fr->fr+1), fr = T-2 .. 1, all slices in one batch
-    inv_in = torch.flip(fwd_pairs[:, 1:], dims=(1,)).reshape(
-        Z * (T - 2), X, Y, 2)
-    inv = invert_field_batch(inv_in).reshape(Z, T - 2, X, Y, 2)
-    bwd_pairs = torch.cat([wraps[:, None], inv], dim=1)
+    if inverse_consistent:
+        wraps = per_slice[:, T - 1]             # 0 -> T-1 per slice
+        # backward chain pairs: (0->T-1), then (fr+1->fr) = inverse of the
+        # forward pair (fr->fr+1), fr = T-2 .. 1, all slices in one batch
+        inv_in = torch.flip(fwd_pairs[:, 1:], dims=(1,)).reshape(
+            Z * (T - 2), X, Y, 2)
+        inv = invert_field_batch(inv_in).reshape(Z, T - 2, X, Y, 2)
+        bwd_pairs = torch.cat([wraps[:, None], inv], dim=1)
+    else:
+        bwd_pairs = per_slice[:, T - 1:]
     forward = compose_chain(fwd_pairs)
     backward_rev = compose_chain(bwd_pairs)
     backward = torch.cat([backward_rev[:, :1],
@@ -125,6 +134,21 @@ def combine_fields(fields: torch.Tensor, Z: int, T: int) -> torch.Tensor:
     out = wf * forward + wb * backward
     out[:, 0] = 0.0
     return out
+
+
+def pair_frames(frames_zs: np.ndarray, inverse_consistent: bool = True):
+    """The registration's (targets, sources), (B, X, Y) each, in the
+    layout :func:`combine_fields` reads: per slice the forward pairs
+    fr-1 → fr, then the wrap pair 0 → T-1 alone (``inverse_consistent``:
+    B = Z * T) or the backward pairs (fr+1) % T → fr for fr = T-1 .. 1
+    (B = Z * 2(T-1))."""
+    T = frames_zs.shape[1]
+    back = [T - 1] if inverse_consistent else list(range(T - 1, 0, -1))
+    targets = np.concatenate([np.concatenate(
+        [f[:-1], f[[(fr + 1) % T for fr in back]]]) for f in frames_zs])
+    sources = np.concatenate([np.concatenate([f[1:], f[back]])
+                              for f in frames_zs])
+    return targets, sources
 
 
 def sample_points(fields: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -188,34 +212,32 @@ def warp_dice(seg: torch.Tensor, fields: torch.Tensor, xv: int,
 
 
 def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
-                             register_batch=None,
-                             device=None) -> torch.Tensor:
+                             register_batch=None, device=None,
+                             inverse_consistent: bool = True
+                             ) -> torch.Tensor:
     """Per-frame ED→fr displacement fields for several slices at once.
 
     frames_zs: (Z, T, X, Y).  Returns the (Z, T, X, Y, 2) tensor on the
     device: forward = compose of pairs (fr-1→fr); backward = compose of
     circular pairs (fr+1→fr) from frame 0 backwards; blended with weights
     (T−fr)/T and fr/T (``cardiac_utils.py:881-936``).  Every slice's every
-    pair joins ONE batched registration; each adjacent pair is registered
-    once and the reverse transform comes from field inversion (the JAX
-    package's inverse-consistent default; its both-directions scheme is
-    not ported).  ``register_batch``: a prebuilt
-    :func:`make_register_batch` for (X, Y).
+    pair joins ONE batched registration.  ``inverse_consistent`` (the
+    default): each adjacent pair is registered once and the reverse
+    transform comes from field inversion; False: the reference's
+    both-directions scheme, every backward pair registered too (2(T-1)
+    pairs a slice against T).  ``register_batch``: a
+    prebuilt :func:`make_register_batch` for (X, Y).
     """
     dev = resolve_device(device)
     Z, T, X, Y = frames_zs.shape
     if register_batch is None:
         register_batch = make_register_batch((X, Y), cfg, device=dev)
-    # per slice: the forward pairs fr-1 -> fr, then the wrap pair 0 -> T-1
-    targets = np.concatenate([np.concatenate([f[:-1], f[0:1]])
-                              for f in frames_zs])
-    sources = np.concatenate([np.concatenate([f[1:], f[T - 1:T]])
-                              for f in frames_zs])
+    targets, sources = pair_frames(frames_zs, inverse_consistent)
     controls = register_batch(torch.from_numpy(targets).to(dev),
                               torch.from_numpy(sources).to(dev))
     with torch.no_grad():
         fields = total_field(controls, (X, Y), cfg)
-        return combine_fields(fields, Z, T)
+        return combine_fields(fields, Z, T, inverse_consistent)
 
 
 def track_slice_fields(frames: np.ndarray, cfg: RegConfig,
@@ -228,7 +250,8 @@ def track_slice_fields(frames: np.ndarray, cfg: RegConfig,
 
 def start_sa_motion_dispatch(data_dir: str, output_dir: str,
                              cfg: RegConfig = RegConfig(),
-                             eval_dice: bool = False, device=None):
+                             eval_dice: bool = False, device=None,
+                             inverse_consistent: bool = True):
     """Stage 1 of the SA strain driver: crop, ED contours, and the whole
     registration + composition queued on the device.
 
@@ -236,6 +259,7 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
     displacements and Dice rows are device tensors, possibly still being
     computed), or None when no slice qualifies.  Runs on ``device``
     (default the card; raises without one unless ``device="cpu"``).
+    ``inverse_consistent``: see :func:`track_multi_slice_fields`.
     """
     dev = resolve_device(device)
     # LV-focused crop (cardiac_utils.py:845-853): relabel RV->BG, bbox+20;
@@ -310,7 +334,8 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
         seg_dev = torch.from_numpy(seg_sel).to(dev)
 
     # the dense fields stay on the device; only points and Dice rows return
-    fields = track_multi_slice_fields(frames_zs, cfg, device=dev)
+    fields = track_multi_slice_fields(frames_zs, cfg, device=dev,
+                                      inverse_consistent=inverse_consistent)
     with torch.no_grad():
         disp = sample_points(fields, pts_dev)
         dice = None if seg_dev is None else warp_dice(seg_dev, fields, X, Y)
@@ -387,18 +412,21 @@ def cine_2d_sa_motion_and_strain_analysis(data_dir: str, output_dir: str,
                                           output_name_stem: str,
                                           cfg: RegConfig = RegConfig(),
                                           eval_dice: bool = False,
-                                          device=None
+                                          device=None,
+                                          inverse_consistent: bool = True
                                           ) -> Optional[pd.DataFrame]:
     """Full SA strain driver (``cardiac_utils.py:840-987``), MIRTK-free.
 
     Expects ``<data_dir>/{sa,seg_sa,seg_sa_ED}.nii.gz``; writes contour
     VTKs + strain CSVs ``<output_name_stem>_{radial,circum}.csv``.
     Returns the per-frame LV/Myo warp-Dice table when ``eval_dice``.
-    Composed from :func:`start_sa_motion_dispatch` +
-    :func:`finish_sa_motion`.
+    ``inverse_consistent=False`` registers every pair in both directions,
+    as the reference does.  Composed from :func:`start_sa_motion_dispatch`
+    + :func:`finish_sa_motion`.
     """
     ctx = start_sa_motion_dispatch(data_dir, output_dir, cfg, eval_dice,
-                                   device=device)
+                                   device=device,
+                                   inverse_consistent=inverse_consistent)
     if ctx is None:
         return None
     return finish_sa_motion(ctx, output_name_stem)

@@ -18,8 +18,10 @@ from ukbb_cardiac_tpu_torch.reg.register import (
     compose_chain,
     compose_fields,
     gaussian_blur,
+    invert_field,
     invert_field_batch,
     make_register_batch,
+    make_register_pair,
     total_field,
     transform_points,
     warp_image,

@@ -200,6 +200,21 @@ def compose_fields(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     return d2 + torch.stack([d1x, d1y], dim=-1)
 
 
+def invert_field(disp: torch.Tensor, iters: int = 10) -> torch.Tensor:
+    """Invert one (X, Y, 2) pull-back field by the fixed-point iteration
+    v = -u(x + v(x)), ``iters`` times from v = 0, with ``sample_2d``'s
+    zero-boundary bilinear sampling (the JAX ``invert_field``)."""
+    X, Y, _ = disp.shape
+    gx, gy = _grid(X, Y, disp.device)
+    v = torch.zeros_like(disp)
+    for _ in range(iters):
+        px = gx + v[..., 0]
+        py = gy + v[..., 1]
+        v = -torch.stack([sample_2d(disp[..., 0], px, py),
+                          sample_2d(disp[..., 1], px, py)], dim=-1)
+    return v
+
+
 def invert_field_batch(disp: torch.Tensor, iters: int = 10) -> torch.Tensor:
     """Invert (B, X, Y, 2) pull-back fields by the fixed-point iteration
     v = -u(x + v(x)), ``iters`` times from v = 0; both displacement
@@ -269,6 +284,24 @@ class _Adam:
         nu_hat = self.nu / bc2
         updates = mu_hat / (torch.sqrt(nu_hat + 0.0) + self.eps)
         return params + (-self.lr) * updates
+
+
+def make_register_pair(image_shape: Tuple[int, int],
+                       cfg: RegConfig = RegConfig(), device=None):
+    """Single-pair registration: ``register(target, source) -> controls``,
+    :func:`make_register_batch` at B = 1 (the same pyramid optimiser).
+    The transform maps target coordinates to source coordinates
+    (pull-back), as ``mirtk register -dofout`` in the frame-to-frame
+    tracking (``cardiac_utils.py:882-890``); the per-level lattices
+    (Cx_l, Cy_l, 2) go to :func:`total_field` / :func:`transform_points`."""
+    batch = make_register_batch(image_shape, cfg, device=device)
+
+    def register(target, source):
+        controls = batch(torch.as_tensor(target)[None],
+                         torch.as_tensor(source)[None])
+        return tuple(c[0] for c in controls)
+
+    return register
 
 
 def make_register_batch(image_shape: Tuple[int, int],

@@ -512,12 +512,12 @@ def make_ao_optimizer(cfg: AoTrainConfig, net: torch.nn.Module):
 def restore_pretrained_unet(net: wrappers.UNetLSTM, model_path: str):
     """Load the U-Net (BN moving statistics included) from a bundle's
     ``UNet`` scope — the two-phase restore (``train_network_ao.py:
-    407-414``).  Only .npz bundles are read: converting a TF checkpoint
-    is not ported (ROADMAP A14)."""
+    407-414``).  A TF checkpoint prefix is converted first
+    (``ckpt/tf_reader.py``; needs tensorflow on the host)."""
     if not model_path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{model_path}: only .npz model bundles are read; converting "
-            "TF checkpoints is not ported (ROADMAP A14)")
+        from ukbb_cardiac_tpu_torch.ckpt.tf_reader import \
+            convert_tf_checkpoint
+        model_path = convert_tf_checkpoint(model_path)
     _, _, names, params, state = store.load_model(model_path)
     sd = convert.unet_state_dict_from_jax(params, state, names)
     device = next(net.unet.parameters()).device
