@@ -116,11 +116,22 @@
    Phase 2 also holds both B-spline kernels at the both-directions batch
    (B = 294 at every level of the 96^2 bucket), and phase 9 times the
    native host pack beside its numpy twin (bytes identical);
-12. prints the card's name and power limit, one JSON line of kernel
+12. meshes: ``make_mesh(1)`` holds the card and a mesh of one card more
+   than the machine has raises; ``InferenceEngine.segment_subjects_sharded``
+   over ``make_mesh(["cuda:0", "cuda:0"])`` on the cohort's 3 SA cines
+   and ``AorticEngine.segment_subjects_sharded`` on 2 of its aortic cines,
+   labels byte-identical to the per-subject path (walls of both);
+   ``run_cohort_sa(mesh=...)`` with 1 worker on the cohort's subjects
+   (each subject's registration pairs in two shards): strain rows against
+   phase 5's 1-worker rows, median strain stage seconds beside phase 5's,
+   B-spline launches per subject; ``cli.eval_strain_sax --mesh_devices 1``
+   on one subject;
+13. prints the card's name and power limit, one JSON line of kernel
    figures (the head's launches from the 1-worker cohort run, the
-   ingestion phase's and the demo's, the B-spline kernels' likewise and
-   from the propagation and the both-directions run, with their times at
-   those shapes), and, last, ``{"ok": true, "device": {...}}``.
+   ingestion phase's, the demo's and the mesh phase's, the B-spline
+   kernels' likewise and from the propagation and the both-directions
+   run, with their times at those shapes), and, last,
+   ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --forward_vs <tree>`` instead builds the B-spline
 forward of another checkout ``<tree>`` (an earlier design, C interface
@@ -731,7 +742,7 @@ def idle_propagation(prop, nifti, d, T, seed):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/12] build", flush=True)
+    print("[1/13] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -818,7 +829,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/12] fused head vs its plain version at the main path's shapes",
+    print("[2/13] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -862,7 +873,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/12] fused head with the LA bundles vs its plain version at "
+    print(f"[2/13] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -955,7 +966,7 @@ def bspline_phase(card, tb, bf):
     propagation's."""
     import torch.nn.functional as F
 
-    print("[2/12] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/13] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA), {N_LA_PAIRS} (LA) and {N_PAIRS_BOTH} (SA, "
           "both directions)", flush=True)
     result = {}
@@ -1099,7 +1110,7 @@ def forward_vs_earlier(card, kernels, bf, tree):
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/12] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/13] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -1187,7 +1198,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/12] main path: wall thickness + SA strain "
+    print(f"[4/13] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -1394,7 +1405,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/12] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/13] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1632,7 +1643,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/12] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/13] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1773,7 +1784,7 @@ def train_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import sa as tsa
 
-    print(f"[7/12] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+    print(f"[7/13] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
           f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
           flush=True)
     data = os.path.join(work, "train_set")
@@ -1999,7 +2010,7 @@ def resnet_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 
-    print("[8/12] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+    print("[8/13] ResNet-FCN deploy: seeded init at the FCN_sa widths",
           flush=True)
     cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
                             n_filter=(16, 32, 64, 128, 256),
@@ -2059,7 +2070,7 @@ def propagation_phase(card, work, bf):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     B, crop_shape, lattice, spacing = propagation_case()
-    print(f"[9/12] aortic labels propagated (RegConfig.aortic_motion(): 1 "
+    print(f"[9/13] aortic labels propagated (RegConfig.aortic_motion(): 1 "
           f"level, 100 Adam steps, NMI) on {AO_TRAIN_SUBJECTS} {AO_SHAPE} "
           f"int16 cines annotated at frames {AO_ANNOTATED}", flush=True)
     root = os.path.join(work, "ao_train")
@@ -2197,7 +2208,7 @@ def ao_train_phase(card, root, truth, work):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import ao as tao
 
-    print(f"[9/12] aortic trainer on the propagated labels: U-Net 16-256, "
+    print(f"[9/13] aortic trainer on the propagated labels: U-Net 16-256, "
           f"5 levels, BiConvLSTM 16 hidden, {AO_SIZE_TRAIN}^2 crops",
           flush=True)
     # one validation subject with its true labels
@@ -2333,7 +2344,7 @@ def packed_phase(card, engine_mod, deploy):
     from ukbb_cardiac_tpu_torch.infer import transfer
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 
-    print("[9/12] the packed up-leg: one SA and one aortic cine, packed and "
+    print("[9/13] the packed up-leg: one SA and one aortic cine, packed and "
           "raw", flush=True)
     sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
                         wall=0.039 * MAIN_SHAPE[0],
@@ -2583,7 +2594,7 @@ def ingestion_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
 
     T = MAIN_SHAPE[3]
-    print(f"[10/12] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
+    print(f"[10/13] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
           f"DICOMs (SA {MAIN_SHAPE}, LA 2/3/4Ch {MAIN_SHAPE[:2] + (1, T)}, "
           f"aortic {AO_SHAPE}; SOF3, JPEG-LS and RLE series in subject 0) -> "
           f"cli.convert_data -> cli.run_cohort full mode, 1 worker",
@@ -2732,7 +2743,7 @@ def demo_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     subjects = sorted(truth)[:DEMO_SUBJECTS]
-    print(f"[11/12] this slice: the demo pipeline on {len(subjects)} "
+    print(f"[11/13] this slice: the demo pipeline on {len(subjects)} "
           f"subjects (SA {MAIN_SHAPE}, LA {MAIN_SHAPE[:2] + (1, MAIN_SHAPE[3])}"
           f", aortic {AO_SHAPE} int16), the trained bundles", flush=True)
     root = os.path.join(work, "demo")
@@ -3024,6 +3035,172 @@ def slice_phase(card, work, truth, strain, register):
     return demo, both
 
 
+# the mesh slice's phase: the cohort phase's subjects split over a mesh
+# that names the one card twice
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+MESH_AO_SUBJECTS = 2
+
+
+def mesh_phase(card, work, truth):
+    """``make_mesh`` on the card; both engines' ``segment_subjects_sharded``
+    over ``make_mesh(MESH_DEVICES)`` on the cohort's SA cines and on
+    MESH_AO_SUBJECTS aortic cines, labels byte for byte against the
+    per-subject path; ``run_cohort_sa(mesh=...)`` with 1 worker on the
+    cohort's subjects (segs on disk: the strain stage runs, its pairs in
+    two shards), strain rows against phase 5's 1-worker rows; and
+    ``cli.eval_strain_sax --mesh_devices 1`` on one subject.  Returns the
+    kernels' launches in the sharded runs."""
+    import pandas as pd
+
+    from ukbb_cardiac_tpu_torch.cli import eval_strain_sax
+    from ukbb_cardiac_tpu_torch.infer import deploy, deploy_ao
+    from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
+    from ukbb_cardiac_tpu_torch.parallel import cohort as cohort_mod
+    from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    T = MAIN_SHAPE[3]
+    print(f"[12/13] meshes: fleet deploys and the sharded registration over "
+          f"make_mesh({MESH_DEVICES}): {N_SUBJECTS} SA cines {MAIN_SHAPE}, "
+          f"{MESH_AO_SUBJECTS} aortic cines {AO_SHAPE} int16, the SA strain "
+          f"of {N_SUBJECTS} subjects", flush=True)
+    one = make_mesh(1)
+    print(f"  make_mesh(1) -> {one}")
+    if one.devices.tolist() != [torch.device("cuda", 0)]:
+        raise AssertionError(f"make_mesh(1) holds {one.devices.tolist()}")
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh(n_cards + 1)
+    except ValueError as exc:
+        print(f"  make_mesh({n_cards + 1}) -> ValueError: {exc}")
+    else:
+        raise AssertionError(f"make_mesh({n_cards + 1}) did not raise")
+    mesh = make_mesh(MESH_DEVICES)
+    launches = dict.fromkeys(("fused_head", "bspline_field",
+                              "bspline_field_adjoint"), 0)
+
+    def sharded(fn):
+        """Run ``fn`` with the counts at 0; add its launches."""
+        _reset_launches()
+        out = fn()
+        for k, v in _launches().items():
+            launches[k] += v
+        return out
+
+    def per_subject(dispatch, cines):
+        pending = [dispatch(c) for c in cines]
+        return [p.result() for p in pending]
+
+    # the SA fleet against the per-subject path (run once first: cuDNN's
+    # first calls choose their algorithms)
+    sa = np.stack([cohort_subject(i, T)[0]["sa"] for i in range(N_SUBJECTS)])
+    engine = InferenceEngine(deploy.load_segmentation_model(BUNDLE, "cuda"))
+    per_subject(engine.segment_sequence_dispatch, sa[:1])
+    t0 = time.perf_counter()
+    ref = per_subject(engine.segment_sequence_dispatch, sa)
+    t_ref = time.perf_counter() - t0
+    head_before = launches["fused_head"]
+    t0 = time.perf_counter()
+    fleet = sharded(lambda: engine.segment_subjects_sharded(sa, mesh))
+    t_fleet = time.perf_counter() - t0
+    same = [np.array_equal(fleet[i], ref[i]) for i in range(N_SUBJECTS)]
+    print(f"  SA fleet {sa.shape}: wall {t_fleet:.4f} s against the "
+          f"per-subject path's {t_ref:.4f} s [{card}]; fused_head launches "
+          f"{launches['fused_head'] - head_before}; labels byte-identical "
+          f"to segment_sequence_dispatch: {same}")
+    if fleet.dtype != np.uint8 or fleet.shape != sa.shape or not all(same):
+        raise AssertionError("the SA fleet's labels differ from the "
+                             "per-subject path's")
+
+    # the aortic fleet
+    ao = np.stack([cohort_subject(i, T)[0]["ao"]
+                   for i in range(MESH_AO_SUBJECTS)])
+    ao_engine = deploy_ao.load_aortic_engine(AO_BUNDLE, "cuda")
+    ao_engine.segment_cine(ao[0])
+    t0 = time.perf_counter()
+    ref_ao = per_subject(ao_engine.segment_cine_dispatch, ao)
+    t_ref_ao = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_ao = sharded(lambda: ao_engine.segment_subjects_sharded(ao, mesh))
+    t_fleet_ao = time.perf_counter() - t0
+    same = [np.array_equal(fleet_ao[i], ref_ao[i])
+            for i in range(MESH_AO_SUBJECTS)]
+    print(f"  aortic fleet {ao.shape}: wall {t_fleet_ao:.4f} s against the "
+          f"per-subject path's {t_ref_ao:.4f} s [{card}]; labels "
+          f"byte-identical to segment_cine: {same}")
+    if fleet_ao.shape != ao.shape or not all(same):
+        raise AssertionError("the aortic fleet's labels differ from "
+                             "segment_cine's")
+
+    # the sharded registration through the cohort: phase 5's segs are on
+    # disk, so each subject's deploy skips and its strain stage runs
+    out = os.path.join(work, "mesh_csv")
+    bsp_before = (launches["bspline_field"],
+                  launches["bspline_field_adjoint"])
+    result = sharded(lambda: cohort_mod.run_cohort_sa(
+        os.path.join(work, "cohort"), engine, workers=1, mesh=mesh,
+        output_dir=out, verbose=False))
+    if sorted(result.fleet.succeeded) != sorted(truth) or \
+            result.fleet.failed:
+        raise AssertionError(f"sharded cohort: {result.fleet.failed}")
+    with open(os.path.join(work, "cohort_0.json")) as f:
+        flat_stages = json.load(f)["stage_seconds"]
+    strain_s = {k: float(np.median([st["strain"] for st in v.values()]))
+                for k, v in (("mesh", result.stage_seconds),
+                             ("flat", flat_stages))}
+    n = (launches["bspline_field"] - bsp_before[0],
+         launches["bspline_field_adjoint"] - bsp_before[1])
+    got, want = (pd.read_csv(os.path.join(d, "table_strain_sax.csv"),
+                             index_col=0).sort_index()
+                 for d in (out, os.path.join(work, "cohort_csv_0")))
+    diff = np.abs(got.values - want.values)
+    glob = [want.columns.get_loc(c) for c in ("Ecc_Global (%)",
+                                              "Err_Global (%)")]
+    seg_diff, glob_diff = float(np.nanmax(diff)), float(diff[:, glob].max())
+    print(f"  sharded SA strain, {N_SUBJECTS} subjects, 1 worker: median "
+          f"strain stage {strain_s['mesh']:.4f} s against phase 5's "
+          f"unsharded {strain_s['flat']:.4f} s [{card}]; per subject "
+          f"bspline_field launches {n[0] / N_SUBJECTS:g}, adjoint "
+          f"{n[1] / N_SUBJECTS:g}; strain rows against phase 5's 1-worker "
+          f"rows: max difference {seg_diff:.6g} pp, Global {glob_diff:.6g} "
+          f"pp ({'equal' if seg_diff == 0 else 'not equal'})")
+    if got.shape != want.shape or list(got.index) != list(want.index):
+        raise AssertionError(f"sharded strain table {got.shape}")
+    if seg_diff != 0:
+        print("  the rows differ: float noise in the shards' batched ops "
+              "(the shards run at half the batch) grows through Adam; held "
+              f"to the SA strain bounds ({STRAIN_SEGMENT_ATOL} / "
+              f"{STRAIN_GLOBAL_ATOL} pp)")
+    if not (seg_diff <= STRAIN_SEGMENT_ATOL
+            and glob_diff <= STRAIN_GLOBAL_ATOL):
+        raise AssertionError("sharded strain rows outside the SA bounds")
+    if min(n) <= 0:
+        raise AssertionError("the sharded strain launched no B-spline kernel")
+
+    # the strain CLI through its main with --mesh_devices 1
+    subject = sorted(truth)[0]
+    data = os.path.join(work, "mesh_cli")
+    os.makedirs(os.path.join(data, subject))
+    for name in ("sa", "seg_sa", "seg_sa_ED"):
+        shutil.copy(os.path.join(work, "cohort", subject, f"{name}.nii.gz"),
+                    os.path.join(data, subject))
+    t0 = time.perf_counter()
+    eval_strain_sax.main(["--data_dir", data, "--output_csv",
+                          os.path.join(work, "mesh_cli.csv"), "--device",
+                          "cuda", "--mesh_devices", "1"])
+    row = pd.read_csv(os.path.join(work, "mesh_cli.csv"), index_col=0)
+    cli_diff = float(np.nanmax(np.abs(
+        row.loc[int(subject)].values - want.loc[int(subject)].values)))
+    print(f"  eval_strain_sax --mesh_devices 1 on {subject}: wall "
+          f"{time.perf_counter() - t0:.4f} s; row against phase 5's: max "
+          f"difference {cli_diff:.6g} pp")
+    if not cli_diff <= STRAIN_SEGMENT_ATOL:
+        raise AssertionError("the strain CLI's row is outside the SA bounds")
+    print(f"  mesh launches {launches}; phase 12: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3085,9 +3262,11 @@ def main() -> int:
         # the checkpoint audit and PheWAS
         demo_launches, both_launches = slice_phase(card, work, truth, strain,
                                                    register)
+        # this slice's path: the fleet deploys and the sharded registration
+        mesh_launches = mesh_phase(card, work, truth)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[12/12] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[13/13] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -3099,7 +3278,8 @@ def main() -> int:
         "bound_by": head["bound_by"], "library_ms": None,
         "path": "cohort, 1 worker",
         "ingestion": {"launches": ingest_launches["fused_head"]},
-        "demo": {"launches": demo_launches["fused_head"]}}]
+        "demo": {"launches": demo_launches["fused_head"]},
+        "mesh": {"launches": mesh_launches["fused_head"]}}]
     # the B-spline kernels: launches on the cohort's path and times at the
     # SA strain path's 96^2 (the series of earlier slices), and under
     # "propagation" the aortic propagation's launches and times at its
@@ -3122,6 +3302,7 @@ def main() -> int:
                             "shape": spline["propagation"]["shape"],
                             **{k: tp[k] for k in keys}},
             "demo": {"launches": demo_launches[name]},
+            "mesh": {"launches": mesh_launches[name]},
             "both_directions": {"launches": both_launches[name],
                                 "shape": spline["both"]["shape"],
                                 **{k: tb2[k] for k in keys}}})

@@ -48,6 +48,7 @@ from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine as TEngine
 from ukbb_cardiac_tpu_torch.infer.engine import SegmentationModel as TModel
 from ukbb_cardiac_tpu_torch.ops import intensity as tintensity
 from ukbb_cardiac_tpu_torch.ops.crop import pad_to_size
+from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
 from ukbb_cardiac_tpu_torch.phenotype import aorta as taorta
 from ukbb_cardiac_tpu_torch.phenotype import qc as tqc
 
@@ -221,8 +222,15 @@ def test_deploy_refusals(tmp_path, monkeypatch):
     engine = tdeploy_ao.load_aortic_engine(AO_BUNDLE, "cpu")
     with pytest.raises(ValueError, match="exceeds"):
         engine.segment_cine_dispatch(np.zeros((300, 10, 1, 2), np.int16))
-    with pytest.raises(NotImplementedError, match="A14"):
-        engine.segment_subjects_sharded(np.zeros((2, 8, 8, 1, 2)), None)
+    # the fleet deploy refuses an empty stack, and a cine too large for
+    # the grid as the per-subject path does
+    mesh = make_mesh(["cpu"] * 2)
+    with pytest.raises(ValueError, match="empty"):
+        engine.segment_subjects_sharded(np.zeros((0, 8, 8, 1, 2), np.int16),
+                                        mesh)
+    with pytest.raises(ValueError, match="exceeds"):
+        engine.segment_subjects_sharded(np.zeros((1, 300, 10, 1, 2),
+                                                 np.int16), mesh)
     with pytest.raises(ValueError, match="frame-wise"):
         tdeploy_ao.deploy_subject_ed_es_ao(engine, str(tmp_path))
     # a TF checkpoint prefix is converted first (tests/test_torch_tf.py

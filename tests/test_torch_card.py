@@ -716,3 +716,43 @@ def test_both_directions_strain_on_card_matches_cpu(card, tmp_path):
         assert diff[-1].max() <= 0.5, (k, diff[-1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=0.005,
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_matches_unsharded(card):
+    """A 4-subject cine stack and a 6-pair registration split over
+    ``make_mesh(["cuda:0", "cuda:0"])``: the labels equal the per-subject
+    path's byte for byte through the head kernel, and the lattices equal
+    the unsharded run's through both B-spline kernels."""
+    from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    engine = InferenceEngine(SegmentationModel.from_fcn(_random_fcn(), card))
+    cines = (np.random.RandomState(4).rand(4, 64, 80, 2, 3) * 900).astype(
+        np.int16)
+    before = tfh.fused_head.launches
+    segs = engine.segment_subjects_sharded(cines, mesh)
+    assert tfh.fused_head.launches > before
+    assert segs.shape == cines.shape and segs.dtype == np.uint8
+    for i in range(4):
+        np.testing.assert_array_equal(segs[i],
+                                      engine.segment_sequence_fused(cines[i]))
+
+    X = Y = 48
+    gx, gy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    rng = np.random.RandomState(6)
+    frames = np.stack([np.exp(-((gx - 24 - s) ** 2 + (gy - 22 - s / 2) ** 2)
+                              / 72.0) for s in (0, 1.5, 3.0, 1.0, 0.5, 2.0,
+                                                2.5)])
+    frames = (frames + 0.01 * rng.randn(*frames.shape)).astype(np.float32)
+    cfg = tr.RegConfig(spacing=8, levels=2, iters=30, lr=0.5, be_weight=1e-2)
+    before = (bspline_field.launches, bspline_field.adjoint_launches)
+    got = tr.make_register_batch((X, Y), cfg, mesh=mesh)(frames[:-1],
+                                                         frames[1:])
+    assert bspline_field.launches > before[0]
+    assert bspline_field.adjoint_launches > before[1]
+    want = tr.make_register_batch((X, Y), cfg, device=card)(frames[:-1],
+                                                            frames[1:])
+    for g, w in zip(got, want):
+        assert g.device == w.device and g.shape == w.shape
+        assert torch.equal(g, w)

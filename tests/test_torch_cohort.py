@@ -197,7 +197,6 @@ def test_cli_summary_manifest_and_exit_code(tmp_path, bundle, capsys):
 @pytest.mark.parametrize("extra, error, match", [
     # as the JAX CLI: pressures without the aortic model are a usage error
     (["--pressure_csv", "bp.csv"], SystemExit, "2"),
-    (["--mesh_devices", "2"], NotImplementedError, "multi-GPU"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, bundle, extra, error,
                                         match):
@@ -205,6 +204,30 @@ def test_cli_refuses_what_is_not_ported(tmp_path, bundle, extra, error,
         run_cohort.main(["--data_dir", str(tmp_path), "--model_path", bundle,
                          "--output_dir", str(tmp_path / "csv"),
                          "--device", "cpu"] + extra)
+
+
+def test_cli_mesh_devices_on_the_cpu_matches_one_device(tmp_path, bundle,
+                                                       monkeypatch):
+    """``--device cpu --mesh_devices 2`` splits each subject's strain pairs
+    over two CPU replicas: every table equals the one-device run's.  A
+    mesh of cards without a card raises."""
+    for tag, extra in (("one", []), ("mesh", ["--mesh_devices", "2"])):
+        _cohort(str(tmp_path / tag), 1)
+        assert run_cohort.main(["--data_dir", str(tmp_path / tag),
+                                "--model_path", bundle, "--output_dir",
+                                str(tmp_path / f"{tag}_csv"), "--device",
+                                "cpu"] + extra) == 0
+    names = sorted(os.listdir(tmp_path / "one_csv"))
+    assert names == sorted(os.listdir(tmp_path / "mesh_csv"))
+    assert "table_strain_sax.csv" in names
+    for name in names:
+        assert ((tmp_path / "mesh_csv" / name).read_text()
+                == (tmp_path / "one_csv" / name).read_text()), name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_cohort.main(["--data_dir", str(tmp_path / "one"), "--model_path",
+                         bundle, "--output_dir", str(tmp_path / "x"),
+                         "--mesh_devices", "2"])
 
 
 def _ao_only_subject(root, eid="1000001", T=3):

@@ -118,6 +118,8 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.utils",
     "ukbb_cardiac_tpu_torch.utils.timing",
     "ukbb_cardiac_tpu_torch.utils.cache",
+    # the mesh slice's
+    "ukbb_cardiac_tpu_torch.parallel.mesh",
 }
 
 

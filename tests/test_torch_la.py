@@ -273,13 +273,27 @@ def test_la_strain_cli_matches_jax(tmp_path):
     _within_la_bounds(got.values, want.values)
 
 
+def test_la_strain_cli_on_a_cpu_mesh_matches_one_device(tmp_path):
+    """``--device cpu --mesh_devices 2`` splits the pairs over two CPU
+    replicas: the table equals the one-device run's."""
+    tables = {}
+    for tag, extra in (("one", []), ("mesh", ["--mesh_devices", "2"])):
+        write_full_subject(str(tmp_path / tag / "77"), 0, T=4)
+        tcli_lax.main(["--data_dir", str(tmp_path / tag), "--output_csv",
+                       str(tmp_path / f"{tag}.csv"), "--device", "cpu"]
+                      + extra)
+        tables[tag] = pd.read_csv(tmp_path / f"{tag}.csv", index_col=0)
+    assert tables["mesh"].shape == (1, 7)
+    np.testing.assert_array_equal(tables["mesh"].values, tables["one"].values)
+
+
 def test_la_strain_raises_without_card_and_for_mesh(subject, monkeypatch,
                                                     tmp_path):
-    with pytest.raises(NotImplementedError):
-        tcli_lax.main(["--data_dir", str(tmp_path), "--output_csv",
-                       str(tmp_path / "o.csv"), "--device", "cpu",
-                       "--mesh_devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # a mesh of cards without a card raises; it never becomes a CPU mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli_lax.main(["--data_dir", str(tmp_path), "--output_csv",
+                       str(tmp_path / "o.csv"), "--mesh_devices", "2"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli_lax.main(["--data_dir", str(tmp_path), "--output_csv",
                        str(tmp_path / "o.csv")])

@@ -20,6 +20,7 @@ from ukbb_cardiac_tpu.reg import losses as jl
 from ukbb_cardiac_tpu.reg import register as jr
 from ukbb_cardiac_tpu.reg.parcfg import load_par_cfg as jload
 from ukbb_cardiac_tpu_torch.ops.resample import sample_2d as tsample
+from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
 from ukbb_cardiac_tpu_torch.reg import losses as tl
 from ukbb_cardiac_tpu_torch.reg import register as tr
 from ukbb_cardiac_tpu_torch.reg.parcfg import load_par_cfg as tload
@@ -285,9 +286,10 @@ def test_register_batch_full_small_run():
 
 
 def test_register_batch_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tr.make_register_batch((16, 16), tr.RegConfig(), mesh=object(),
-                               device="cpu")
+    empty = np.zeros((0, 16, 16), np.float32)
+    with pytest.raises(ValueError, match="empty"):
+        tr.make_register_batch((16, 16), tr.RegConfig(),
+                               mesh=make_mesh(["cpu"] * 2))(empty, empty)
     with pytest.raises(ValueError):
         tr.make_register_batch((16, 16), tr.RegConfig(warp_backend="tpu"),
                                device="cpu")

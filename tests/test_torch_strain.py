@@ -189,10 +189,25 @@ def test_clis_raise_without_card(tmp_path, monkeypatch):
     for cli in (tcli_strain, tcli_wt):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(args)
-    with pytest.raises(NotImplementedError):
-        tcli_strain.main(args + ["--device", "cpu", "--mesh_devices", "2"])
+    # a mesh of cards without a card raises; it never becomes a CPU mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli_strain.main(args + ["--mesh_devices", "2"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tstrain.start_sa_motion_dispatch(str(tmp_path), str(tmp_path))
+
+
+def test_strain_cli_on_a_cpu_mesh_matches_one_device(subject, tmp_path):
+    """``--device cpu --mesh_devices 2`` splits each subject's pairs over
+    two CPU replicas: the table equals the one-device run's."""
+    tables = {}
+    for tag, extra in (("one", []), ("mesh", ["--mesh_devices", "2"])):
+        shutil.copytree(subject, tmp_path / tag / subject.name)
+        tcli_strain.main(["--data_dir", str(tmp_path / tag), "--output_csv",
+                          str(tmp_path / f"{tag}.csv"), "--device", "cpu"]
+                         + extra)
+        tables[tag] = pd.read_csv(tmp_path / f"{tag}.csv", index_col=0)
+    assert tables["mesh"].shape == (1, 34)
+    np.testing.assert_array_equal(tables["mesh"].values, tables["one"].values)
 
 
 @pytest.mark.parametrize("exc, stops", [(ValueError("bad subject"), False),

@@ -5,7 +5,9 @@ The JAX CLI's flags (``ukbb_cardiac_tpu/cli/eval_strain_lax.py``) plus
 ``--device`` (default ``cuda``; without a card it raises unless
 ``--device cpu`` is given).  ``--par_dir`` works drop-in: a
 ``ffd_cine_la_2d_motion.cfg`` there is parsed into the registration
-config.  ``--mesh_devices`` above 1 (multi-GPU) is not ported and raises.
+config.  ``--mesh_devices n`` (n > 1) splits each subject's registration pairs
+over ``make_mesh(n, device=--device)``: n cards, or n CPU replicas with
+``--device cpu``.
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.eval_strain_lax \
@@ -42,18 +44,20 @@ def main(argv=None):
                              "record the Dice (the reference's dormant "
                              "self-check, cardiac_utils.py:944-967).")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="Accepted for the JAX CLI's sake: values above "
-                             "1 (multi-GPU) are not ported and raise.")
+                        help="Split each subject's registration pair "
+                             "population over this many devices of "
+                             "--device (0 = one).")
     parser.add_argument("--start_idx", type=int, default=0)
     parser.add_argument("--end_idx", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu'.")
     args = parser.parse_args(argv)
 
-    if args.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1 (multi-GPU) is not "
-                                  "ported")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_devices > 1:
+        from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh_devices, device=args.device)
 
     cfg = RegConfig.cine_2d_motion()
     par_path = os.path.join(args.par_dir, "ffd_cine_la_2d_motion.cfg")
@@ -106,6 +110,7 @@ def main(argv=None):
         # subject and stops the run.
         try:
             ctx = start_la_motion_dispatch(data_dir, motion_dir, cfg=cfg,
+                                           mesh=mesh,
                                            eval_dice=args.eval_dice,
                                            device=device)
         except RuntimeError:

@@ -14,8 +14,9 @@ subject match the individual CLIs file for file; aggregate CSVs go to
 exit code are the JAX CLI's.
 
 The JAX CLI's flags plus ``--device`` (default ``cuda``; without a card it
-raises unless ``--device cpu`` is given).  Not ported, and raising when
-asked for: ``--mesh_devices`` above 1 (multi-GPU, ROADMAP A14).
+raises unless ``--device cpu`` is given).  ``--mesh_devices n`` (n > 1)
+splits each subject's registration pairs over ``make_mesh(n,
+device=--device)``: n cards, or n CPU replicas with ``--device cpu``.
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.run_cohort --data_dir <dir> \
@@ -50,8 +51,9 @@ def main(argv=None):
                         help="Write the fleet manifest (per-subject "
                              "status/seconds) to this JSON file")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="Accepted for the JAX CLI's sake: values above "
-                             "1 (multi-GPU) are not ported and raise.")
+                        help="Split each subject's registration pair "
+                             "population over this many devices of "
+                             "--device (0 = one).")
     parser.add_argument("--model_path_la_2ch", metavar="path", default="")
     parser.add_argument("--model_path_la_4ch", metavar="path", default="")
     parser.add_argument("--model_path_seg4", metavar="path", default="")
@@ -73,9 +75,6 @@ def main(argv=None):
     if args.pressure_csv and not args.model_path_ao:
         parser.error("--pressure_csv is only used by the aortic stage; "
                      "pass --model_path_ao as well")
-    if args.mesh_devices > 1:
-        raise NotImplementedError("--mesh_devices > 1 (multi-GPU) is not "
-                                  "ported")
 
     from ukbb_cardiac_tpu_torch import resolve_device
     from ukbb_cardiac_tpu_torch.infer.deploy import load_segmentation_model
@@ -84,6 +83,10 @@ def main(argv=None):
                                                         run_cohort_sa)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_devices > 1:
+        from ukbb_cardiac_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh_devices, device=args.device)
     dtype = torch.bfloat16 if args.bf16 else None
 
     def slice_engine(path):
@@ -94,7 +97,7 @@ def main(argv=None):
                   output_dir=args.output_dir,
                   skip_existing_seg=not args.force,
                   start_idx=args.start_idx, end_idx=args.end_idx,
-                  device=device)
+                  mesh=mesh, device=device)
     if any((args.model_path_la_2ch, args.model_path_la_4ch,
             args.model_path_seg4, args.model_path_ao)):
         engines = {"sa": engine}

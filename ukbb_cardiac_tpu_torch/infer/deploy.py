@@ -124,6 +124,17 @@ def _finish_subject_sequence(ctx: dict, seq_name: str, seg4: bool,
     return seg_time
 
 
+def deploy_subject_sequence(engine: InferenceEngine, data_dir: str,
+                            seq_name: str, seg4: bool = False,
+                            save_seg: bool = True) -> Optional[float]:
+    """Segment one subject's full cine and write its outputs.  Returns the
+    segmentation seconds, or None if skipped."""
+    ctx = _start_subject_sequence(engine, data_dir, seq_name, seg4)
+    if ctx is None:
+        return None
+    return _finish_subject_sequence(ctx, seq_name, seg4, save_seg)
+
+
 def deploy_subject_ed_es(engine: InferenceEngine, data_dir: str,
                          seq_name: str, seg4: bool = False,
                          save_seg: bool = True) -> List[float]:

@@ -24,6 +24,7 @@ Window modes, as in the JAX package:
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 import warnings
@@ -40,7 +41,8 @@ from ukbb_cardiac_tpu_torch.ckpt.store import load_model_with_extra
 from ukbb_cardiac_tpu_torch.infer import transfer
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  PendingSegmentation,
-                                                 SegmentationModel, pack_bits)
+                                                 SegmentationModel, pack_bits,
+                                                 pad_stack_to_multiple)
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.models.wrappers import UNetLSTM
 from ukbb_cardiac_tpu_torch.ops.crop import pad_to_size
@@ -48,6 +50,8 @@ from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity,
                                                   normalise_intensity_torch,
                                                   rescale_intensity,
                                                   rescale_intensity_torch)
+from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
+                                                  map_shards, split_leading)
 
 AO_SIZE = 256  # fixed aortic grid (deploy_network_ao.py:105)
 KINDS = ("unet_lstm", "temporal_unet", "unet")
@@ -68,7 +72,11 @@ def window_weights(weight_R: int, weight_r: float) -> np.ndarray:
 class AorticEngine:
     """Runs an aortic model on one device: ``kind`` ``'unet_lstm'``
     (``net`` a :class:`UNetLSTM`), ``'temporal_unet'`` (a 3D
-    :class:`UNet`) or ``'unet'`` (a 2D :class:`UNet`, per frame)."""
+    :class:`UNet`) or ``'unet'`` (a 2D :class:`UNet`, per frame).
+
+    :meth:`segment_subjects_sharded` splits whole subjects over a mesh,
+    each shard through :meth:`segment_cine_dispatch` of a replica on its
+    device (:meth:`replica`)."""
 
     def __init__(self, kind: str, net: torch.nn.Module, device=None,
                  compute_dtype=torch.float32):
@@ -83,6 +91,17 @@ class AorticEngine:
         # the adaptive packed up-leg (infer/transfer.py)
         self._bw = transfer.BandwidthTracker()
         self._stats = transfer.TransferStats()
+        self._replicas = {str(canonical_device(self.device)): self}
+
+    def replica(self, device) -> "AorticEngine":
+        """The engine on ``device``: this one, or a copy of its network
+        there (made at first use and kept)."""
+        key = str(canonical_device(device))
+        if key not in self._replicas:
+            self._replicas[key] = AorticEngine(
+                self.kind, copy.deepcopy(self.net), device,
+                self.compute_dtype)
+        return self._replicas[key]
 
     @torch.inference_mode()
     def _full_prob(self, seq: torch.Tensor) -> torch.Tensor:
@@ -141,7 +160,8 @@ class AorticEngine:
             events[1].record()
         else:
             host = packed
-        return PendingSegmentation(host, (X, Y, Z, T), bits, events)
+        return PendingSegmentation(host, (X, Y, Z, T), bits, events,
+                                   stats=self._stats)
 
     def segment_cine(self, image: np.ndarray, z_score: bool = True,
                      pad_to: int = AO_SIZE) -> np.ndarray:
@@ -151,11 +171,28 @@ class AorticEngine:
 
     def segment_subjects_sharded(self, images, mesh, z_score: bool = True,
                                  pad_to: Optional[int] = None,
-                                 axis: str = "data"):
-        """Subjects sharded over several cards: not ported (ROADMAP A14,
-        multi-GPU)."""
-        raise NotImplementedError("segment_subjects_sharded (multi-GPU) is "
-                                  "not ported: ROADMAP A14")
+                                 axis: str = "data") -> np.ndarray:
+        """Fleet aortic deploy: S same-shape raw cines (S, X, Y, Z, T) with
+        whole subjects split over ``axis`` of ``mesh``; each subject's
+        full bidirectional scan runs on one device, through the replica's
+        :meth:`segment_cine_dispatch`.  Returns (S, X, Y, Z, T) uint8
+        labels.  S need not divide the axis (or reach it): the stack pads
+        up by cycling subjects, and the padding is sliced off."""
+        images, S = pad_stack_to_multiple(images, mesh.shape[axis])
+        pad_to = pad_to or AO_SIZE
+        devices = mesh.axis_devices(axis)
+        for d in devices:  # here, not in the shards' threads
+            self.replica(d)
+
+        def one_shard(cines, device):
+            eng = self.replica(device)
+            pending = [eng.segment_cine_dispatch(c, z_score, pad_to)
+                       for c in cines]
+            return [p.result() for p in pending]
+
+        segs = map_shards(one_shard, split_leading(images, mesh, axis),
+                          devices)
+        return np.stack([s for shard in segs for s in shard])[:S]
 
     def _seq(self, image: np.ndarray) -> torch.Tensor:
         """Padded cine (X, Y, Z, T) -> (Z, T, X, Y) float32 on the device."""

@@ -28,6 +28,8 @@ probabilities on request (``want_prob``).
 
 from __future__ import annotations
 
+import copy
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,6 +46,9 @@ from ukbb_cardiac_tpu_torch.models.unet import UNet
 from ukbb_cardiac_tpu_torch.ops.crop import pad_to_multiple
 from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity_torch,
                                                   rescale_intensity_torch)
+from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
+                                                  cycle_to_multiple,
+                                                  map_shards, split_leading)
 
 
 def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
@@ -109,6 +114,16 @@ class SegmentationModel:
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
+    def to(self, device) -> "SegmentationModel":
+        """This model on ``device``: itself when it is there already, else
+        a copy of the network there with its head folded again."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        net = copy.deepcopy(self.net).to(device).eval()
+        return SegmentationModel(net, fold_head(net) if self.head is not None
+                                 else None, self.compute_dtype, self.n_class)
+
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         if self.head is None:
@@ -124,27 +139,50 @@ class PendingSegmentation:
     memory behind an event; ``result()`` waits on that event and unpacks
     to (X, Y, Z, T) uint8 labels.  ``device_ms`` is then the time on the
     stream from the cine's upload to the end of the readback (CUDA
-    events), or None on the CPU.
+    events), or None on the CPU.  With ``stats`` (a
+    :class:`~ukbb_cardiac_tpu_torch.infer.transfer.TransferStats`) the
+    readback is recorded there: its bytes, and the wall time ``result()``
+    waited for it (compute still in flight included).
     """
 
     def __init__(self, packed_host: torch.Tensor, out_shape, bits: int,
-                 events=None):
+                 events=None, stats=None):
         self._packed = packed_host
         self._shape = tuple(out_shape)
         self._bits = bits
         self._events = events
+        self._stats = stats
         self.device_ms = None
 
     def result(self) -> np.ndarray:
+        t0 = time.perf_counter()
         if self._events is not None:
             start, end = self._events
             end.synchronize()
             self.device_ms = start.elapsed_time(end)
+        if self._stats is not None:
+            self._stats.record_d2h(self._packed.numel(),
+                                   time.perf_counter() - t0)
         n = int(np.prod(self._shape))
         # one native pass through a per-byte table (the JAX engine's);
         # the numpy unpack builds a (bytes, 8 / bits) temporary
         return native.unpack_bits(self._packed.numpy(), self._bits,
                                   n).reshape(self._shape)
+
+
+def pad_stack_to_multiple(stack: np.ndarray, n: int):
+    """Pad a leading subject axis up to a multiple of ``n`` by cycling the
+    subjects (so a stack smaller than ``n`` fills too).  Returns (padded,
+    original count); raises on an empty stack."""
+    return cycle_to_multiple(np.asarray(stack), n)
+
+
+def pad_to_factor(X: int, Y: int, factor: int = 16):
+    """Centred padding amounts ((x_pre, x_post), (y_pre, y_post)) that make
+    X, Y multiples of ``factor`` (``deploy_network.py:97-100``), from
+    :func:`~ukbb_cardiac_tpu_torch.ops.crop.pad_to_multiple`."""
+    x_pre, x_post, y_pre, y_post = pad_to_multiple(X, Y, factor)
+    return (x_pre, x_post), (y_pre, y_post)
 
 
 _HOST_DTYPES = (np.float32, np.int16, np.uint8, np.int8, np.int32)
@@ -156,6 +194,14 @@ class InferenceEngine:
     ``chunk``: slices per forward (64 keeps the encoder's activations of
     a 192x208 chunk near 1 GB in float32).  ``pad_factor``: spatial
     padding multiple (16 = the FCN's 2^(n_level-1)).
+
+    The sharded paths (:meth:`make_sharded_forward`,
+    :meth:`segment_subjects_sharded`) split their batch over a
+    :class:`~ukbb_cardiac_tpu_torch.parallel.mesh.Mesh` and run each shard
+    through this engine's own path on a replica on the shard's device
+    (:meth:`replica`; replicas on one device share its weights), so their
+    labels are those of :meth:`run_slices` and
+    :meth:`segment_sequence_fused`.
     """
 
     def __init__(self, model: SegmentationModel, chunk: int = 64,
@@ -167,6 +213,16 @@ class InferenceEngine:
         # the adaptive packed up-leg (infer/transfer.py)
         self._bw = transfer.BandwidthTracker()
         self._stats = transfer.TransferStats()
+        self._replicas = {str(self.device): self}
+
+    def replica(self, device) -> "InferenceEngine":
+        """The engine on ``device``: this one, or a copy of its model there
+        (made at first use and kept)."""
+        key = str(canonical_device(device))
+        if key not in self._replicas:
+            self._replicas[key] = InferenceEngine(
+                self.model.to(device), self.chunk, self.pad_factor)
+        return self._replicas[key]
 
     def _pack_bits(self) -> int:
         n = self.model.n_class
@@ -297,4 +353,66 @@ class InferenceEngine:
             events[1].record()
         else:
             host = packed
-        return PendingSegmentation(host, (X, Y, Z, T), bits, events)
+        return PendingSegmentation(host, (X, Y, Z, T), bits, events,
+                                   stats=self._stats)
+
+    def make_sharded_forward(self, mesh, axis: str = "data"):
+        """A slice forward with the batch split over ``axis`` of ``mesh``:
+        ``run(images)`` maps (N, X, Y, 1) normalised slices to (N, X, Y)
+        uint8 labels, N divided over the axis, each shard through
+        :meth:`run_slices` of the replica on its device."""
+        devices = mesh.axis_devices(axis)
+        for d in devices:  # here, not in the shards' threads
+            self.replica(d)
+
+        def run(images):
+            shards = split_leading(np.asarray(images), mesh, axis)
+            return np.concatenate(map_shards(
+                lambda s, d: self.replica(d).run_slices(s), shards, devices))
+
+        return run
+
+    def make_sharded_cine_forward(self, mesh, cine_shape,
+                                  rescale: str = "percentile",
+                                  axis: str = "data"):
+        """Fleet inference of S raw cines of shape ``cine_shape`` (X, Y, Z,
+        T): ``run(cines)`` maps (S, X, Y, Z, T) to (S, X, Y, Z, T) uint8
+        labels with whole subjects split over ``axis`` (S must divide it).
+        Each replica runs the per-subject pipeline of
+        :meth:`segment_sequence_dispatch` (rescale, pad, chunked forward,
+        argmax, pack, readback) on its device, every subject of its shard
+        queued before the first is waited for."""
+        if rescale not in ("percentile", "zscore", "none"):
+            raise ValueError(f"unknown rescale {rescale!r}")
+        cine_shape = tuple(cine_shape)
+        devices = mesh.axis_devices(axis)
+        for d in devices:  # here, not in the shards' threads
+            self.replica(d)
+
+        def one_shard(cines, device):
+            eng = self.replica(device)
+            pending = [eng.segment_sequence_dispatch(c, rescale)
+                       for c in cines]
+            return [p.result() for p in pending]
+
+        def run(cines):
+            cines = np.asarray(cines)
+            if cines.shape[1:] != cine_shape:
+                raise ValueError(f"cines of shape {cines.shape[1:]}, the "
+                                 f"forward was built for {cine_shape}")
+            shards = split_leading(cines, mesh, axis)
+            segs = map_shards(one_shard, shards, devices)
+            return np.stack([s for shard in segs for s in shard])
+
+        return run
+
+    def segment_subjects_sharded(self, images: np.ndarray, mesh,
+                                 rescale: str = "percentile",
+                                 axis: str = "data") -> np.ndarray:
+        """Segment a stack of S same-shape raw cines (S, X, Y, Z, T) with
+        subjects split over the mesh.  Returns (S, X, Y, Z, T) uint8.  S
+        need not divide the mesh axis (or reach it): the stack pads up by
+        cycling subjects, and the padding is sliced off the result."""
+        images, S = pad_stack_to_multiple(images, mesh.shape[axis])
+        return self.make_sharded_cine_forward(mesh, images.shape[1:], rescale,
+                                              axis)(images)[:S]

@@ -27,7 +27,8 @@ while :class:`BandwidthTracker` counts the link as degraded (an EMA below
 ``PACK_BELOW_MBPS``, or no sample yet).  On the card a sample is one
 upload timed by CUDA events on the engine's stream; the events are read
 when they have completed, never waited for.  :class:`TransferStats`
-counts the bytes shipped and the bytes the raw path would have shipped.
+counts the bytes shipped and the bytes the raw path would have shipped,
+and the engines' label readbacks.
 """
 
 from __future__ import annotations
@@ -163,14 +164,20 @@ class BandwidthTracker:
 
 @dataclass
 class TransferStats:
-    """Cumulative up-leg accounting: bytes shipped, the bytes the raw path
-    would have shipped, dispatches (packed, delta)."""
+    """Cumulative transfer accounting: on the up-leg the bytes shipped, the
+    bytes the raw path would have shipped and the dispatches (packed,
+    delta); on the readback the packed label bytes fetched, the fetches,
+    and the wall time spent waiting for them (compute still in flight
+    included, so an upper bound on the copy)."""
 
     h2d_bytes: int = 0
     h2d_raw_bytes: int = 0
     h2d_dispatches: int = 0
     packed_dispatches: int = 0
     delta_dispatches: int = 0
+    d2h_bytes: int = 0
+    d2h_seconds: float = 0.0
+    d2h_fetches: int = 0
 
     def record_h2d(self, shipped: int, raw: int, plan) -> None:
         self.h2d_bytes += shipped
@@ -180,6 +187,28 @@ class TransferStats:
             self.packed_dispatches += 1
             if plan.mode == "delta":
                 self.delta_dispatches += 1
+
+    def record_d2h(self, n_bytes: int, seconds: float) -> None:
+        self.d2h_bytes += n_bytes
+        self.d2h_seconds += seconds
+        self.d2h_fetches += 1
+
+    def snapshot(self, bw: Optional[BandwidthTracker] = None) -> dict:
+        """The counters as a dict, with the tracker's bandwidth EMA
+        (``h2d_mbps_ema``, MB/s) when ``bw`` has a sample."""
+        out = {
+            "h2d_bytes": self.h2d_bytes,
+            "h2d_raw_bytes": self.h2d_raw_bytes,
+            "h2d_dispatches": self.h2d_dispatches,
+            "packed_dispatches": self.packed_dispatches,
+            "delta_dispatches": self.delta_dispatches,
+            "d2h_bytes": self.d2h_bytes,
+            "d2h_seconds": round(self.d2h_seconds, 3),
+            "d2h_fetches": self.d2h_fetches,
+        }
+        if bw is not None and bw.mbps is not None:
+            out["h2d_mbps_ema"] = round(bw.mbps, 1)
+        return out
 
 
 def plan_pack(image: np.ndarray, bw: Optional[BandwidthTracker]

@@ -117,6 +117,16 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here.  A query only: every op
+    of this module still raises when the build fails."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _jpeg_decode(fn_name: str, data: bytes, expected_pixels):
     lib = get_lib()
     cap = int(expected_pixels) if expected_pixels else (1 << 22)

@@ -8,8 +8,9 @@ raises if it fails; 3D masks go to scipy.  The scipy versions
 path to: the same components, the same first-in-raster-order choice
 among equal largest ones.  Reference semantics:
 ``common/image_utils.py:227-249`` (``get_largest_cc``,
-``remove_small_cc``) and the QC fragmentation criterion
-(``cardiac_utils.py:1629-1643``).
+``remove_small_cc``), the QC fragmentation criterion
+(``cardiac_utils.py:1629-1643``) and the aortic trainer's trusted-region
+mask (``train_network_ao.py:81-95``).
 """
 
 from __future__ import annotations
@@ -95,3 +96,19 @@ def remove_small_cc_scipy(binary, thres=10):
     out = np.copy(binary)
     out[small[cc]] = 0
     return out
+
+
+def get_trusted_mask(label_map, radius=5):
+    """Trusted-region mask (``train_network_ao.py:81-95``): the union of
+    the eroded foreground and the eroded background, so that pixels near
+    the foreground/background boundary, where a label propagated from
+    another frame is least reliable, are zeroed.  The erosion uses cv2's
+    elliptical structuring element of size ``2*radius - 1``.  Returns
+    int8."""
+    import cv2
+
+    fg = (np.asarray(label_map) > 0).astype(np.uint8)
+    size = radius * 2 - 1
+    kernel = cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (size, size))
+    return np.logical_or(cv2.erode(fg, kernel),
+                         cv2.erode(1 - fg, kernel)).astype(np.int8)

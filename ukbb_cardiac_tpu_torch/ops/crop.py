@@ -40,6 +40,15 @@ def pad_to_multiple(X: int, Y: int, multiple: int = 16):
     return x_pre, (X2 - X) - x_pre, y_pre, (Y2 - Y) - y_pre
 
 
+def pad_image_to_multiple(image, multiple: int = 16):
+    """Zero-pad the first two axes, centred, to a multiple of
+    ``multiple``; returns (padded, (x_pre, x_post, y_pre, y_post))."""
+    image = np.asarray(image)
+    pads = pad_to_multiple(*image.shape[:2], multiple)
+    pad = ([pads[:2], pads[2:]] + [(0, 0)] * (image.ndim - 2))
+    return np.pad(image, pad, "constant"), pads
+
+
 def pad_to_size(X: int, Y: int, size: int):
     """Centred padding amounts to reach a fixed (size, size) canvas, as
     the aortic deployer pads to 256 x 256 (``deploy_network_ao.py:104-108``).

@@ -26,8 +26,8 @@ from typing import Dict, Optional, Sequence
 
 import pandas as pd
 
-from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.parallel.fleet import FleetResult, run_fleet
+from ukbb_cardiac_tpu_torch.parallel.mesh import resolve_device_for
 
 
 class CohortResult:
@@ -50,6 +50,7 @@ class CohortResult:
 
 
 def process_subject_sa(engine, data_dir: str,
+                       cfg=None, register_batch=None, mesh=None,
                        eval_dice: bool = False,
                        result: Optional[CohortResult] = None,
                        skip_existing_seg: bool = True,
@@ -57,7 +58,10 @@ def process_subject_sa(engine, data_dir: str,
     """The full SA chain for one subject directory; returns stage seconds.
 
     ``engine`` is the shared :class:`InferenceEngine`.  The strain stage
-    runs on ``device`` (default the card; ``"cpu"`` when asked).
+    runs on ``device`` (default the card; ``"cpu"`` when asked; with a
+    ``mesh``, its first device) with registration config ``cfg`` (default
+    ``RegConfig()``), a prebuilt ``register_batch`` if given, and its pair
+    population split over ``mesh`` if given.
     """
     from ukbb_cardiac_tpu_torch.infer.deploy import (_finish_subject_sequence,
                                                      _start_subject_sequence)
@@ -127,9 +131,12 @@ def process_subject_sa(engine, data_dir: str,
         motion_dir = os.path.join(data_dir, "cine_motion")
         os.makedirs(motion_dir, exist_ok=True)
         try:
+            kwargs = {} if cfg is None else {"cfg": cfg}
             sctx = start_sa_motion_dispatch(data_dir, motion_dir,
                                             eval_dice=eval_dice,
-                                            device=device)
+                                            register_batch=register_batch,
+                                            mesh=mesh, device=device,
+                                            **kwargs)
             if sctx is not None:
                 # motion_dir is deleted below: skip its per-frame VTKs
                 finish_sa_motion(sctx, os.path.join(data_dir, "strain_sa"),
@@ -188,7 +195,8 @@ def _run(data_root, subjects, start_idx, end_idx, workers, verbose,
 
 def run_cohort_sa(data_root: str, engine,
                   subjects: Optional[Sequence[str]] = None,
-                  workers: int = 1,
+                  workers: int = 1, cfg=None, register_batch=None,
+                  mesh=None,
                   eval_dice: bool = False, output_dir: Optional[str] = None,
                   verbose: bool = True, skip_existing_seg: bool = True,
                   start_idx: int = 0, end_idx: int = -1,
@@ -196,15 +204,18 @@ def run_cohort_sa(data_root: str, engine,
     """Process a cohort end to end, subject by subject.
 
     ``workers`` worker threads each drive whole subjects.  The strain
-    stage runs on ``device`` (default the card).  Returns a
-    :class:`CohortResult`; with ``output_dir`` set, writes the four
+    stage runs on ``device`` (default the card, or the first device of
+    ``mesh``); ``mesh`` splits each subject's registration pair
+    population over its devices (``reg.make_register_batch``).  Returns
+    a :class:`CohortResult`; with ``output_dir`` set, writes the four
     aggregate CSVs in the reference CLIs' schemas.
     """
-    dev = resolve_device(device)
+    dev = resolve_device_for(device, mesh)
 
     def process(data_dir, result):
-        process_subject_sa(engine, data_dir, eval_dice=eval_dice,
-                           result=result,
+        process_subject_sa(engine, data_dir, cfg=cfg,
+                           register_batch=register_batch, mesh=mesh,
+                           eval_dice=eval_dice, result=result,
                            skip_existing_seg=skip_existing_seg, device=dev)
 
     result = _run(data_root, subjects, start_idx, end_idx, workers,
@@ -242,6 +253,7 @@ def write_cohort_csvs(result: CohortResult, output_dir: str) -> None:
 
 
 def process_subject_full(engines: Dict[str, object], data_dir: str,
+                         cfg=None, register_batch=None, mesh=None,
                          pressure_value: Optional[float] = None,
                          eval_dice: bool = False,
                          result: Optional[CohortResult] = None,
@@ -258,8 +270,12 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
     skip its stage (its phenotype stages then skip on missing files, like
     the reference).  ``pressure_value``: this subject's central pulse
     pressure for distensibility (None or NaN → NaN distensibility).
-    Strain stages run on ``device`` (default the card); the aortic deploy
-    on its engine's device.
+    Strain stages run on ``device`` (default the card, or the first
+    device of ``mesh``) with ``cfg`` (default ``RegConfig()``), their
+    pair populations split over ``mesh`` if given; ``register_batch``, a
+    prebuilt registration for the SA crop, serves the SA strain only (the
+    LA crop has a shape of its own).  The aortic deploy runs on its
+    engine's device.
     """
     from ukbb_cardiac_tpu_torch.infer.deploy import (_finish_subject_sequence,
                                                      _start_subject_sequence)
@@ -273,8 +289,9 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
 
     subject = os.path.basename(data_dir.rstrip("/"))
     stages = process_subject_sa(
-        engines.get("sa"), data_dir, eval_dice=eval_dice,
-        result=result, skip_existing_seg=skip_existing_seg,
+        engines.get("sa"), data_dir, cfg=cfg, register_batch=register_batch,
+        mesh=mesh, eval_dice=eval_dice, result=result,
+        skip_existing_seg=skip_existing_seg,
         device=device) if engines.get("sa") else {}
 
     # --- LA deploys (deploy_network.py la_2ch / la_4ch / --seg4) ----------
@@ -308,9 +325,10 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
         motion_dir = os.path.join(data_dir, "cine_la_motion")
         os.makedirs(motion_dir, exist_ok=True)
         try:
-            ctx = start_la_motion_dispatch(data_dir, motion_dir,
+            kwargs = {} if cfg is None else {"cfg": cfg}
+            ctx = start_la_motion_dispatch(data_dir, motion_dir, mesh=mesh,
                                            eval_dice=eval_dice,
-                                           device=device)
+                                           device=device, **kwargs)
             if ctx is not None:
                 # motion_dir is deleted below: skip its per-frame VTKs
                 finish_la_motion(ctx, os.path.join(data_dir,
@@ -354,7 +372,8 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
 
 def run_cohort_full(data_root: str, engines: Dict[str, object],
                     subjects: Optional[Sequence[str]] = None,
-                    workers: int = 1, pressure=None, eval_dice: bool = False,
+                    workers: int = 1, cfg=None, mesh=None,
+                    pressure=None, eval_dice: bool = False,
                     output_dir: Optional[str] = None,
                     verbose: bool = True, skip_existing_seg: bool = True,
                     start_idx: int = 0, end_idx: int = -1,
@@ -363,8 +382,9 @@ def run_cohort_full(data_root: str, engines: Dict[str, object],
     threads — ``demo_pipeline.py`` per subject, not stage by stage.
     ``pressure``: optional mapping eid → central pulse pressure (e.g. the
     Series of :func:`~ukbb_cardiac_tpu_torch.phenotype.aorta.
-    load_central_pulse_pressure`)."""
-    dev = resolve_device(device)
+    load_central_pulse_pressure`).  ``cfg`` and ``mesh``: as
+    :func:`process_subject_full`'s."""
+    dev = resolve_device_for(device, mesh)
 
     def process(data_dir, result):
         pp = None
@@ -373,7 +393,8 @@ def run_cohort_full(data_root: str, engines: Dict[str, object],
                 pp = float(pressure[int(os.path.basename(data_dir))])
             except (KeyError, ValueError, TypeError):
                 pp = None
-        process_subject_full(engines, data_dir, pressure_value=pp,
+        process_subject_full(engines, data_dir, cfg=cfg, mesh=mesh,
+                             pressure_value=pp,
                              eval_dice=eval_dice, result=result,
                              skip_existing_seg=skip_existing_seg,
                              device=dev)

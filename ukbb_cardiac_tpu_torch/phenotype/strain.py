@@ -29,7 +29,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ukbb_cardiac_tpu_torch import resolve_device
+from ukbb_cardiac_tpu_torch.parallel.mesh import resolve_device_for
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.io.vtkio import (PolyData, append_polydata,
                                              load_polydata, save_polydata)
@@ -213,8 +213,8 @@ def warp_dice(seg: torch.Tensor, fields: torch.Tensor, xv: int,
 
 def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
                              register_batch=None, device=None,
-                             inverse_consistent: bool = True
-                             ) -> torch.Tensor:
+                             inverse_consistent: bool = True,
+                             mesh=None) -> torch.Tensor:
     """Per-frame ED→fr displacement fields for several slices at once.
 
     frames_zs: (Z, T, X, Y).  Returns the (Z, T, X, Y, 2) tensor on the
@@ -226,31 +226,38 @@ def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
     transform comes from field inversion; False: the reference's
     both-directions scheme, every backward pair registered too (2(T-1)
     pairs a slice against T).  ``register_batch``: a
-    prebuilt :func:`make_register_batch` for (X, Y).
+    prebuilt :func:`make_register_batch` for (X, Y).  ``mesh``: split the
+    pair population over the mesh (:func:`make_register_batch`); the
+    fields then land on its first device unless ``device`` is given.
     """
-    dev = resolve_device(device)
+    dev = resolve_device_for(device, mesh)
     Z, T, X, Y = frames_zs.shape
     if register_batch is None:
-        register_batch = make_register_batch((X, Y), cfg, device=dev)
+        register_batch = make_register_batch((X, Y), cfg, mesh=mesh,
+                                             device=dev)
     targets, sources = pair_frames(frames_zs, inverse_consistent)
     controls = register_batch(torch.from_numpy(targets).to(dev),
                               torch.from_numpy(sources).to(dev))
+    controls = tuple(c.to(dev) for c in controls)
     with torch.no_grad():
         fields = total_field(controls, (X, Y), cfg)
         return combine_fields(fields, Z, T, inverse_consistent)
 
 
 def track_slice_fields(frames: np.ndarray, cfg: RegConfig,
+                       register_batch=None, mesh=None,
                        device=None) -> torch.Tensor:
     """Single-slice wrapper around :func:`track_multi_slice_fields`:
     frames (T, X, Y) → (1, T, X, Y, 2) on the device (the slice axis kept,
     as :func:`sample_points` and :func:`warp_dice` take it)."""
-    return track_multi_slice_fields(frames[None], cfg, device=device)
+    return track_multi_slice_fields(frames[None], cfg, register_batch,
+                                    device=device, mesh=mesh)
 
 
 def start_sa_motion_dispatch(data_dir: str, output_dir: str,
                              cfg: RegConfig = RegConfig(),
-                             eval_dice: bool = False, device=None,
+                             eval_dice: bool = False,
+                             register_batch=None, mesh=None, device=None,
                              inverse_consistent: bool = True):
     """Stage 1 of the SA strain driver: crop, ED contours, and the whole
     registration + composition queued on the device.
@@ -258,10 +265,14 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
     Returns a context for :func:`finish_sa_motion` (its point
     displacements and Dice rows are device tensors, possibly still being
     computed), or None when no slice qualifies.  Runs on ``device``
-    (default the card; raises without one unless ``device="cpu"``).
-    ``inverse_consistent``: see :func:`track_multi_slice_fields`.
+    (default the card; raises without one unless ``device="cpu"``; with a
+    ``mesh``, its first device).  ``inverse_consistent``: see
+    :func:`track_multi_slice_fields`.  ``register_batch``: a prebuilt
+    (possibly mesh-split) registration for this subject's LV crop, which
+    is then not padded to the bucket; ``mesh``: split the pair population
+    over the mesh.
     """
-    dev = resolve_device(device)
+    dev = resolve_device_for(device, mesh)
     # LV-focused crop (cardiac_utils.py:845-853): relabel RV->BG, bbox+20;
     # the crop shares the source grid, so it is an exact slice in memory
     ed_nim = nifti.load(os.path.join(data_dir, "seg_sa_ED.nii.gz"))
@@ -306,8 +317,9 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
         return None
     frames_zs = np.stack([np.transpose(sa_crop[:, :, z, :], (2, 0, 1))
                           for z in selected])  # (Zsel, T, X, Y)
-    # zero-pad to the bucket: the reference solves the padded problem
-    Xp, Yp = bucket_hw(X, Y)
+    # zero-pad to the bucket: the reference solves the padded problem (a
+    # prebuilt registration has the shape its caller chose)
+    Xp, Yp = (X, Y) if register_batch is not None else bucket_hw(X, Y)
     frames_zs = np.pad(frames_zs, ((0, 0), (0, 0), (0, Xp - X), (0, Yp - Y)))
 
     # the contour points (and labels) go up before the registration is
@@ -334,8 +346,10 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
         seg_dev = torch.from_numpy(seg_sel).to(dev)
 
     # the dense fields stay on the device; only points and Dice rows return
-    fields = track_multi_slice_fields(frames_zs, cfg, device=dev,
-                                      inverse_consistent=inverse_consistent)
+    fields = track_multi_slice_fields(frames_zs, cfg, register_batch,
+                                      device=dev,
+                                      inverse_consistent=inverse_consistent,
+                                      mesh=mesh)
     with torch.no_grad():
         disp = sample_points(fields, pts_dev)
         dice = None if seg_dev is None else warp_dice(seg_dev, fields, X, Y)
@@ -412,6 +426,7 @@ def cine_2d_sa_motion_and_strain_analysis(data_dir: str, output_dir: str,
                                           output_name_stem: str,
                                           cfg: RegConfig = RegConfig(),
                                           eval_dice: bool = False,
+                                          register_batch=None, mesh=None,
                                           device=None,
                                           inverse_consistent: bool = True
                                           ) -> Optional[pd.DataFrame]:
@@ -421,11 +436,14 @@ def cine_2d_sa_motion_and_strain_analysis(data_dir: str, output_dir: str,
     VTKs + strain CSVs ``<output_name_stem>_{radial,circum}.csv``.
     Returns the per-frame LV/Myo warp-Dice table when ``eval_dice``.
     ``inverse_consistent=False`` registers every pair in both directions,
-    as the reference does.  Composed from :func:`start_sa_motion_dispatch`
+    as the reference does.  ``register_batch``: an optional prebuilt
+    (possibly mesh-split) registration for this subject's LV crop;
+    ``mesh``: split the pair population over a mesh.  Composed from
+    :func:`start_sa_motion_dispatch`
     + :func:`finish_sa_motion`.
     """
     ctx = start_sa_motion_dispatch(data_dir, output_dir, cfg, eval_dice,
-                                   device=device,
+                                   register_batch, mesh, device=device,
                                    inverse_consistent=inverse_consistent)
     if ctx is None:
         return None

@@ -25,7 +25,6 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.io.vtkio import (PolyData, load_polydata,
                                              save_polydata)
@@ -35,6 +34,7 @@ from ukbb_cardiac_tpu_torch.phenotype.aha import \
 from ukbb_cardiac_tpu_torch.phenotype.contours import (approximate_contour,
                                                        extract_contour,
                                                        lv_slice_masks)
+from ukbb_cardiac_tpu_torch.parallel.mesh import resolve_device_for
 from ukbb_cardiac_tpu_torch.phenotype.strain import (bucket_hw, sample_points,
                                                      track_slice_fields,
                                                      warp_dice)
@@ -251,14 +251,18 @@ def evaluate_la_strain_by_length(contour_name_stem: str, T: int, dt: float,
 
 def start_la_motion_dispatch(data_dir: str, output_dir: str,
                              cfg: RegConfig = RegConfig(),
+                             register_batch=None, mesh=None,
                              eval_dice: bool = False, device=None):
     """Stage 1 of the LA strain driver: crop, ED contour, and the
     registration + composition queued on the device.  Returns a context
     for :func:`finish_la_motion` (its point displacements and Dice rows
     are device tensors, possibly still being computed).  Runs on
     ``device`` (default the card; raises without one unless
-    ``device="cpu"``)."""
-    dev = resolve_device(device)
+    ``device="cpu"``; with a ``mesh``, its first device).
+    ``register_batch``: a prebuilt (possibly mesh-split) registration for
+    this subject's crop, which is then not padded to the bucket;
+    ``mesh``: split the pair population over the mesh."""
+    dev = resolve_device_for(device, mesh)
     # LV-focused crop via relabelling (cardiac_utils.py:1412-1425):
     # Myo->LV, then RV/LA/RA -> BG, bbox + 20; the crop shares the source
     # grid, so it is an exact slice in memory
@@ -297,8 +301,9 @@ def start_la_motion_dispatch(data_dir: str, output_dir: str,
 
     frames = np.transpose(la_crop[:, :, 0, :], (2, 0, 1))
     # zero-pad to the JAX package's LA bucket, a multiple of 64 (coarser
-    # than the SA driver's 32): the reference solves the padded problem
-    Xp, Yp = bucket_hw(X, Y, 64)
+    # than the SA path's 32): the reference solves the padded problem (a
+    # prebuilt registration has the shape its caller chose)
+    Xp, Yp = (X, Y) if register_batch is not None else bucket_hw(X, Y, 64)
     frames = np.pad(frames, ((0, 0), (0, Xp - X), (0, Yp - Y)))
 
     # the contour points (and labels) go up before the registration is
@@ -319,7 +324,8 @@ def start_la_motion_dispatch(data_dir: str, output_dir: str,
         seg_dev = torch.from_numpy(seg_sel).to(dev)
 
     # the dense fields stay on the device; only points and Dice rows return
-    fields = track_slice_fields(frames, cfg, device=dev)
+    fields = track_slice_fields(frames, cfg, register_batch, mesh,
+                                device=dev)
     with torch.no_grad():
         disp = sample_points(fields, pts_dev)
         dice = None if seg_dev is None else warp_dice(seg_dev, fields, X, Y)
@@ -376,14 +382,18 @@ def cine_2d_la_motion_and_strain_analysis(data_dir: str, output_dir: str,
                                           output_name_stem: str,
                                           cfg: RegConfig = RegConfig(),
                                           eval_dice: bool = False,
+                                          register_batch=None, mesh=None,
                                           device=None
                                           ) -> Optional[pd.DataFrame]:
     """Full LA strain driver (``cardiac_utils.py:1407-1537``), MIRTK-free.
 
     Expects ``<data_dir>/{la_4ch,seg4_la_4ch,seg4_la_4ch_ED,seg_sa_ED}.nii.gz``.
-    Composed from :func:`start_la_motion_dispatch` +
-    :func:`finish_la_motion`.
+    ``register_batch``: an optional prebuilt (possibly mesh-split)
+    registration for this subject's crop; ``mesh``: split the pair
+    population over a mesh.  Composed from
+    :func:`start_la_motion_dispatch` + :func:`finish_la_motion`.
     """
     ctx = start_la_motion_dispatch(data_dir, output_dir, cfg,
+                                   register_batch, mesh,
                                    eval_dice=eval_dice, device=device)
     return finish_la_motion(ctx, output_name_stem, eval_dice)

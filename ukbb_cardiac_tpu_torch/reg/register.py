@@ -27,6 +27,8 @@ import torch.nn.functional as F
 
 from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.ops.resample import sample_2d
+from ukbb_cardiac_tpu_torch.parallel.mesh import (cycle_to_multiple,
+                                                  map_shards, split_leading)
 from ukbb_cardiac_tpu_torch.reg import bspline, losses
 
 WARP_BACKENDS = ("auto", "mxu", "gather")
@@ -306,7 +308,7 @@ def make_register_pair(image_shape: Tuple[int, int],
 
 def make_register_batch(image_shape: Tuple[int, int],
                         cfg: RegConfig = RegConfig(), mesh=None,
-                        device=None):
+                        device=None, axis: str = "data"):
     """Batched registration: (N, X, Y) targets x sources → per-level
     control stacks (N, Cx_l, Cy_l, 2), each rescaled to full-resolution
     pixels at spacing ``cfg.spacing * factor`` (what :func:`total_field`
@@ -314,18 +316,45 @@ def make_register_batch(image_shape: Tuple[int, int],
     coordinates (pull-back).
 
     Runs on ``device`` (default the card; raises without one unless
-    ``device="cpu"``).  ``mesh`` (a multi-device pair population) is not
-    ported and raises.
+    ``device="cpu"``).  With ``mesh`` (a
+    :class:`~ukbb_cardiac_tpu_torch.parallel.mesh.Mesh`) the pair
+    population is split over ``axis`` instead: it pads up to a multiple of
+    the axis by cycling pairs (so fewer pairs than the axis works too),
+    each equal shard runs its whole pyramid on its device, and the
+    lattices are gathered onto the mesh's first device with the padding
+    sliced off (``device`` is then unused).  The loss is a sum of per-pair energies, so every pair's
+    Adam path is its own and the result is the unsharded run's.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU registration (mesh=) is not "
-                                  "ported")
     if cfg.metric not in ("ssd", "nmi"):
         raise ValueError(f"unknown metric {cfg.metric!r}")
     if cfg.warp_backend not in WARP_BACKENDS:
         raise ValueError(f"warp_backend must be one of {WARP_BACKENDS}, "
                          f"got {cfg.warp_backend!r}")
-    dev = resolve_device(device)
+    if mesh is None:
+        return _register_on(image_shape, cfg, resolve_device(device))
+    devices = mesh.axis_devices(axis)
+    per_device = {str(d): _register_on(image_shape, cfg, d)
+                  for d in devices}
+    gather_on = mesh.devices.flat[0]
+
+    def register(targets, sources):
+        targets, B = cycle_to_multiple(torch.as_tensor(targets),
+                                       len(devices))
+        sources, _ = cycle_to_multiple(torch.as_tensor(sources),
+                                       len(devices))
+        shards = list(zip(split_leading(targets, mesh, axis),
+                          split_leading(sources, mesh, axis)))
+        outs = map_shards(lambda pair, d: per_device[str(d)](*pair), shards,
+                          devices)
+        return tuple(torch.cat([o[l].to(gather_on) for o in outs])[:B]
+                     for l in range(cfg.levels))
+
+    return register
+
+
+def _register_on(image_shape: Tuple[int, int], cfg: RegConfig,
+                 dev: torch.device):
+    """:func:`make_register_batch`'s optimiser on one device."""
     X, Y = image_shape
     factors = [2 ** (cfg.levels - 1 - l) for l in range(cfg.levels)]
     # pad once so every pyramid level divides exactly (edge replicate —
