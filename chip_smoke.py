@@ -126,9 +126,25 @@
    phase 5's 1-worker rows, median strain stage seconds beside phase 5's,
    B-spline launches per subject; ``cli.eval_strain_sax --mesh_devices 1``
    on one subject;
-13. prints the card's name and power limit, one JSON line of kernel
+13. data-parallel training (``train/distributed.py``) on the one card:
+   the production SA profile (128-slice batches, bf16, the slice pool
+   through ``make_pool_slice_multi_dp_step``) in a world of one NCCL rank
+   against the single-card trainer run twice (cuDNN deterministic in
+   all three): params, BN state and Adam state bitwise equal; two gloo
+   ranks on cuda:0 (NCCL refuses two ranks on one card): one float32 step
+   of the FCN_sa bundle at a global batch of 8 slices, gradients and BN
+   state within GRAD_RTOL of the single-card step's, then 20 production
+   SA iterations, then 10 UNet-LSTM iterations (8 windows, 4 a rank, from
+   phase 9's U-Net) beside the single card's, losses falling; ms per
+   step, slices or windows/s, peak memory by rank, spawn seconds, the
+   head's launches in rank 0's validations (one-card figures, no
+   multi-card speed); ``cli.train_network --mesh_devices 2`` raises,
+   naming the card count.  Ranks are spawned processes, which import
+   this file: its top level stays import-safe;
+14. prints the card's name and power limit, one JSON line of kernel
    figures (the head's launches from the 1-worker cohort run, the
-   ingestion phase's, the demo's and the mesh phase's, the B-spline
+   ingestion phase's, the demo's, the mesh phase's and the
+   data-parallel phase's, the B-spline
    kernels' likewise and from the propagation and the both-directions
    run, with their times at those shapes), and, last,
    ``{"ok": true, "device": {...}}``.
@@ -742,7 +758,7 @@ def idle_propagation(prop, nifti, d, T, seed):
 # --- phases ---------------------------------------------------------------
 
 def build_phase(kernels):
-    print("[1/13] build", flush=True)
+    print("[1/14] build", flush=True)
     t0 = time.perf_counter()
     builds = kernels.build()
     print(f"  built {len(builds)} kernel(s) in "
@@ -829,7 +845,7 @@ def head_vs_plain(fh, feats, head, dtype) -> float:
 
 
 def kernel_phase(card, fh, tfcn, model, build):
-    print("[2/13] fused head vs its plain version at the main path's shapes",
+    print("[2/14] fused head vs its plain version at the main path's shapes",
           flush=True)
     print(f"  fused_head.cu: nvcc {build.seconds:.2f} s; registers "
           + "; ".join(f"{k} {r} ({spill})"
@@ -873,7 +889,7 @@ def la_head_phase(card, fh, tfcn, deploy):
     the kernel's 8 inside it) against its plain version at the LA
     deploys' shape: one forward of a (192, 208, 1, 50) cine's 50 frames."""
     X, Y, _, T = MAIN_SHAPE
-    print(f"[2/13] fused head with the LA bundles vs its plain version at "
+    print(f"[2/14] fused head with the LA bundles vs its plain version at "
           f"({T}, {X}, {Y})", flush=True)
     rng = np.random.RandomState(9)
     cines = {"la_2ch": la_phantom(X, Y, T, r_la=20.0, rng=rng)[0]}
@@ -966,7 +982,7 @@ def bspline_phase(card, tb, bf):
     propagation's."""
     import torch.nn.functional as F
 
-    print("[2/13] B-spline synthesis and adjoint vs their plain versions, "
+    print("[2/14] B-spline synthesis and adjoint vs their plain versions, "
           f"B = {N_PAIRS} (SA), {N_LA_PAIRS} (LA) and {N_PAIRS_BOTH} (SA, "
           "both directions)", flush=True)
     result = {}
@@ -1110,7 +1126,7 @@ def forward_vs_earlier(card, kernels, bf, tree):
 
 def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
                     n_level):
-    print(f"[3/13] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
+    print(f"[3/14] main path: SA deploy + volumes, {N_SUBJECTS} subjects at "
           f"{MAIN_SHAPE} int16", flush=True)
     data_dir = os.path.join(work, "data")
     truth = write_subjects(data_dir, nifti)
@@ -1198,7 +1214,7 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
                  work):
     """Wall thickness and SA strain on the deployed subjects, then the
     card's strain against the port's CPU path on a reduced subject."""
-    print(f"[4/13] main path: wall thickness + SA strain "
+    print(f"[4/14] main path: wall thickness + SA strain "
           f"(RegConfig.cine_2d_motion(), warp-Dice), {N_SUBJECTS} subjects",
           flush=True)
     data_dir = os.path.join(work, "data")
@@ -1405,7 +1421,7 @@ def cohort_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg.register import RegConfig
 
     T = MAIN_SHAPE[3]
-    print(f"[5/13] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
+    print(f"[5/14] cohort: run_cohort full mode (SA + la_2ch, la_4ch, seg4 + "
           f"aortic) on {N_SUBJECTS} subjects, SA {MAIN_SHAPE}, LA "
           f"{MAIN_SHAPE[:2] + (1, T)}, aortic {AO_SHAPE} int16, workers 1 "
           f"and 3", flush=True)
@@ -1643,7 +1659,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
 
-    print(f"[6/13] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
+    print(f"[6/14] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
     data_dir = os.path.join(work, "cohort")
     for subject, tr in truth.items():
@@ -1784,7 +1800,7 @@ def train_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import sa as tsa
 
-    print(f"[7/13] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
+    print(f"[7/14] training: FCN_sa architecture, {TRAIN_SUBJECTS} phantom "
           f"subjects' ED/ES pairs at {TRAIN_SHAPE}, {TRAIN_CROP}^2 crops",
           flush=True)
     data = os.path.join(work, "train_set")
@@ -2010,7 +2026,7 @@ def resnet_phase(card, work, fh):
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
     from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 
-    print("[8/13] ResNet-FCN deploy: seeded init at the FCN_sa widths",
+    print("[8/14] ResNet-FCN deploy: seeded init at the FCN_sa widths",
           flush=True)
     cfg = tfcn.ResNetConfig(n_class=4, n_level=5,
                             n_filter=(16, 32, 64, 128, 256),
@@ -2070,7 +2086,7 @@ def propagation_phase(card, work, bf):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     B, crop_shape, lattice, spacing = propagation_case()
-    print(f"[9/13] aortic labels propagated (RegConfig.aortic_motion(): 1 "
+    print(f"[9/14] aortic labels propagated (RegConfig.aortic_motion(): 1 "
           f"level, 100 Adam steps, NMI) on {AO_TRAIN_SUBJECTS} {AO_SHAPE} "
           f"int16 cines annotated at frames {AO_ANNOTATED}", flush=True)
     root = os.path.join(work, "ao_train")
@@ -2208,7 +2224,7 @@ def ao_train_phase(card, root, truth, work):
     from ukbb_cardiac_tpu_torch.io import nifti
     from ukbb_cardiac_tpu_torch.train import ao as tao
 
-    print(f"[9/13] aortic trainer on the propagated labels: U-Net 16-256, "
+    print(f"[9/14] aortic trainer on the propagated labels: U-Net 16-256, "
           f"5 levels, BiConvLSTM 16 hidden, {AO_SIZE_TRAIN}^2 crops",
           flush=True)
     # one validation subject with its true labels
@@ -2344,7 +2360,7 @@ def packed_phase(card, engine_mod, deploy):
     from ukbb_cardiac_tpu_torch.infer import transfer
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 
-    print("[9/13] the packed up-leg: one SA and one aortic cine, packed and "
+    print("[9/14] the packed up-leg: one SA and one aortic cine, packed and "
           "raw", flush=True)
     sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
                         wall=0.039 * MAIN_SHAPE[0],
@@ -2594,7 +2610,7 @@ def ingestion_phase(card, work):
     from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
 
     T = MAIN_SHAPE[3]
-    print(f"[10/13] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
+    print(f"[10/14] ingestion: {N_SUBJECTS} subjects as UK Biobank zips of "
           f"DICOMs (SA {MAIN_SHAPE}, LA 2/3/4Ch {MAIN_SHAPE[:2] + (1, T)}, "
           f"aortic {AO_SHAPE}; SOF3, JPEG-LS and RLE series in subject 0) -> "
           f"cli.convert_data -> cli.run_cohort full mode, 1 worker",
@@ -2743,7 +2759,7 @@ def demo_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.io import nifti
 
     subjects = sorted(truth)[:DEMO_SUBJECTS]
-    print(f"[11/13] this slice: the demo pipeline on {len(subjects)} "
+    print(f"[11/14] this slice: the demo pipeline on {len(subjects)} "
           f"subjects (SA {MAIN_SHAPE}, LA {MAIN_SHAPE[:2] + (1, MAIN_SHAPE[3])}"
           f", aortic {AO_SHAPE} int16), the trained bundles", flush=True)
     root = os.path.join(work, "demo")
@@ -3060,7 +3076,7 @@ def mesh_phase(card, work, truth):
 
     t_phase = time.perf_counter()
     T = MAIN_SHAPE[3]
-    print(f"[12/13] meshes: fleet deploys and the sharded registration over "
+    print(f"[12/14] meshes: fleet deploys and the sharded registration over "
           f"make_mesh({MESH_DEVICES}): {N_SUBJECTS} SA cines {MAIN_SHAPE}, "
           f"{MESH_AO_SUBJECTS} aortic cines {AO_SHAPE} int16, the SA strain "
           f"of {N_SUBJECTS} subjects", flush=True)
@@ -3201,6 +3217,205 @@ def mesh_phase(card, work, truth):
     return launches
 
 
+# the data-parallel slice's phase: the FCN_sa architecture on phase 7's
+# phantom set and the UNet-LSTM_ao widths on phase 9's propagated labels,
+# over train/distributed.py.  The machine has one card: a world of one
+# NCCL rank (bitwise against the single-card trainer), and two gloo ranks
+# on cuda:0 (NCCL refuses two ranks on one card; gloo stages CUDA tensors
+# through the host).  No figure here is a multi-card speed.
+DP_ITERS = 20                        # 2 calls of K = 10 (the first untimed)
+DP_AO_ITERS, DP_AO_K = 10, 5
+DP_WINDOWS = 8                       # 4 a rank
+
+
+def dp_sa_config(ckpt, data, iters, validation_every=10):
+    """The production profile at the released FCN_sa architecture (the
+    CLI's defaults: 128-slice batches, K = 10, bf16, device augmentation,
+    compact transfer, the subject cache, the slice pool)."""
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    return tsa.SATrainConfig(
+        seq_name="sa", image_size=TRAIN_CROP, train_iteration=iters,
+        learning_rate=1e-3 * TRAIN_BATCH / 20, dataset_dir=data,
+        checkpoint_dir=ckpt, validation_every=validation_every, seed=0,
+        device_augment=True, steps_per_dispatch=10, batch_slices=TRAIN_BATCH,
+        bf16=True, compact_transfer=True, device_slices=True, pool_gb=1.0,
+        cache_gb=4.0, device="cuda")
+
+
+def train_log(ckpt):
+    (model_dir,) = [os.path.join(ckpt, m) for m in os.listdir(ckpt)]
+    with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+        return model_dir, [json.loads(line) for line in f]
+
+
+def dp_phase(card, work, ao_root):
+    """Data-parallel training on the one card: a world of one NCCL rank
+    against the single-card trainer, bitwise; then one group of two gloo
+    ranks on cuda:0 (one spawn, ``distributed.run_in_turn``) for 20
+    production SA iterations, one float32 step against the single-card
+    step, and 10 UNet-LSTM iterations beside the single card's, losses
+    falling; the CLI's refusal of more ranks than cards.  Returns the
+    head kernel's launches in rank 0's validations."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.cli import train_network
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+    from ukbb_cardiac_tpu_torch.train import distributed
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "train_set")
+    print(f"[13/14] data-parallel training (train/distributed.py) on the one "
+          f"card: FCN_sa architecture on phase 7's set, {TRAIN_BATCH}-slice "
+          f"batches; UNet-LSTM_ao widths on phase 9's labels, "
+          f"{DP_WINDOWS}-window batches", flush=True)
+    launches = 0
+
+    def report(what, stats, items, wall=None, t0=None):
+        ms = 1e3 * stats["steady_s"] / max(stats["steady_iterations"], 1)
+        peak = stats.get("max_allocated_by_rank",
+                         [torch.cuda.max_memory_allocated()])
+        spawn = ("" if t0 is None else
+                 f"; spawn + group set-up {stats['rank_start_time'] - t0:.2f}"
+                 " s (host clock, call to the rank's start)")
+        took = "" if wall is None else f" in {wall:.2f} s"
+        print(f"  {what}: {stats['iterations']} iterations{took}; "
+              f"steady {stats['steady_iterations']} steps at {ms:.4f} "
+              f"ms/step, {1e3 * items / ms:.1f} {'windows' if items == DP_WINDOWS else 'slices'}/s, "
+              f"waited on the loader {stats['wait_s']:.4f} s; peak memory "
+              f"by rank {[round(b / 2 ** 30, 3) for b in peak]} GiB{spawn} "
+              f"[{card}]")
+
+    def falling(what, ckpt):
+        _, log = train_log(ckpt)
+        losses = [r["loss"] for r in log]
+        print(f"  {what}: loss by log record "
+              + ", ".join(f"{r['iteration']}: {r['loss']:.4f}" for r in log))
+        if not (len(losses) >= 2 and all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{what}: losses not falling: {losses}")
+
+    # a world of one NCCL rank against the single-card trainer, run twice:
+    # cuDNN restricted to deterministic algorithms in all three (the ranks
+    # take the caller's setting), so the trainer is its own control
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("single card", "single card again", "NCCL world of 1"):
+            ckpt = os.path.join(work, "dp_" + name.replace(" ", "_"))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            _, _, _, stats = tsa.train(
+                dp_sa_config(ckpt, data, DP_ITERS), progress_every=1000,
+                **({"devices": ["cuda:0"], "backend": "nccl"}
+                   if name.startswith("NCCL") else {}))
+            wall = time.time() - t0
+            model_dir, _ = train_log(ckpt)
+            with np.load(os.path.join(model_dir,
+                                      f"model-{DP_ITERS}.npz")) as z:
+                runs[name] = {k: z[k] for k in z.files}
+            nccl = name.startswith("NCCL")
+            report(f"SA, {name}", stats, TRAIN_BATCH, wall,
+                   t0 if nccl else None)
+            if nccl:
+                launches += stats["fused_head_launches"]
+                print(f"  head launches in rank 0's validations: "
+                      f"{stats['fused_head_launches']}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for name in ("single card again", "NCCL world of 1"):
+        differ = sorted(k for k, v in runs["single card"].items()
+                        if not np.array_equal(v, runs[name][k]))
+        print(f"  {name} against the single card: "
+              f"{len(runs['single card'])} arrays (params, BN state, Adam "
+              f"state), bitwise equal: {not differ}"
+              + (f" ({len(differ)} differ: {differ[:4]})" if differ else ""))
+        if differ or set(runs[name]) != set(runs["single card"]):
+            raise AssertionError(f"{name}: {len(differ)} arrays differ from "
+                                 "the single-card trainer's")
+
+    # one group of two gloo ranks on cuda:0 for three jobs: 20 production
+    # SA iterations, one float32 step of the FCN_sa bundle at a global
+    # batch of GRAD_BATCH slices, 10 UNet-LSTM iterations from phase 9's
+    # production U-Net
+    kind, mcfg, names, params, state = store.load_model(BUNDLE)
+    net = convert.fcn_from_jax(params, state, names, mcfg)
+    images, labels = tsa.get_random_batch(
+        tsa.scan_dataset(data, "sa")["train"], 1, image_size=TRAIN_CROP,
+        rng=random.Random(0))
+    step_args = (net, functools.partial(tsa.make_fcn_loss, cfg=mcfg),
+                 {"image": images[None, :GRAD_BATCH],
+                  "label": labels[None, :GRAD_BATCH]}, [1], None, 1e-4,
+                 "single")
+    (unet_dir,) = [os.path.join(work, "ao_ckpt_production", m)
+                   for m in os.listdir(os.path.join(work,
+                                                    "ao_ckpt_production"))
+                   if m.startswith("UNet_")]
+    ao_cfgs = {name: tao.AoTrainConfig(
+        model="UNet-LSTM", image_size=AO_SIZE_TRAIN,
+        train_iteration=DP_AO_ITERS, dataset_dir=ao_root,
+        checkpoint_dir=os.path.join(work, "dp_ao_" + name),
+        model_path=os.path.join(
+            unet_dir, f"model-{AO_TRAIN_ITERS['production']}.npz"),
+        validation_every=DP_AO_ITERS // 2, cache_gb=2.0,
+        compact_transfer=True, batch_windows=DP_WINDOWS,
+        steps_per_dispatch=DP_AO_K, device_augment=True, bf16=True,
+        device_windows=True, device="cuda") for name in ("single", "dp")}
+    sa_ckpt = os.path.join(work, "dp_gloo_sa")
+    calls = [(tsa.train_rank, (dp_sa_config(sa_ckpt, data, DP_ITERS), 10,
+                               None, 1000), {}),
+             (distributed.replica_steps, step_args, {}),
+             (tao.train_rank, (ao_cfgs["dp"], DP_AO_K, None, 1000), {})]
+    t0 = time.time()
+    (_, _, _, sa_stats), got, (_, _, _, ao_stats) = distributed.run(
+        distributed.run_in_turn, (calls,), ["cuda:0", "cuda:0"],
+        backend="gloo")
+    wall = time.time() - t0
+    print(f"  two gloo ranks on cuda:0, three jobs in one group: {wall:.2f} "
+          "s with the spawn")
+    report("SA over 2 gloo ranks", sa_stats, TRAIN_BATCH, t0=t0)
+    launches += sa_stats["fused_head_launches"]
+    print(f"  head launches in rank 0's validations: "
+          f"{sa_stats['fused_head_launches']}")
+    falling("SA over 2 gloo ranks", sa_ckpt)
+    want = distributed.replica_steps(None, *step_args, device="cuda")
+    worst = {part: max(float((got[part][k] - v).abs().max())
+                       / max(float(v.abs().max()), 1e-30)
+                       for k, v in want[part].items()
+                       if part == "grads" or "moving" in k)
+             for part in ("grads", "state")}
+    print(f"  one f32 step, {GRAD_BATCH} slices over the 2 ranks: loss "
+          f"{float(got['losses'][0]):.6f} against the single card's "
+          f"{float(want['losses'][0]):.6f}; gradients within "
+          f"{worst['grads']:.3e}, BN state within {worst['state']:.3e} of "
+          f"each tensor's largest (bound {GRAD_RTOL})")
+    if (max(worst.values()) > GRAD_RTOL
+            or set(got["grads"]) != set(want["grads"])):
+        raise AssertionError(f"two gloo ranks against one card: {worst}")
+    report("UNet-LSTM over 2 gloo ranks", ao_stats, DP_WINDOWS)
+    falling("UNet-LSTM over 2 gloo ranks", ao_cfgs["dp"].checkpoint_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, _, _, stats = tao.train(ao_cfgs["single"], progress_every=1000)
+    report("UNet-LSTM, single card", stats, DP_WINDOWS, time.time() - t0)
+    falling("UNet-LSTM, single card", ao_cfgs["single"].checkpoint_dir)
+
+    # the CLI on one card refuses two ranks, naming the card count
+    try:
+        train_network.main(["--dataset_dir", data, "--mesh_devices", "2",
+                            "--checkpoint_dir", os.path.join(work, "dp_cli")])
+    except ValueError as exc:
+        print(f"  cli.train_network --mesh_devices 2 -> ValueError: {exc}")
+        if f"has {torch.cuda.device_count()}" not in str(exc):
+            raise AssertionError("the refusal does not name the card count")
+    else:
+        raise AssertionError("--mesh_devices 2 on one card did not raise")
+    print(f"  one-card figures (the ranks share cuda:0), no multi-card "
+          f"speed; phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3264,9 +3479,11 @@ def main() -> int:
                                                    register)
         # this slice's path: the fleet deploys and the sharded registration
         mesh_launches = mesh_phase(card, work, truth)
+        # this slice's path: data-parallel training over torch.distributed
+        dp_launches = dp_phase(card, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"[13/13] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[14/14] total {time.perf_counter() - t_start:.1f} s")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -3279,7 +3496,8 @@ def main() -> int:
         "path": "cohort, 1 worker",
         "ingestion": {"launches": ingest_launches["fused_head"]},
         "demo": {"launches": demo_launches["fused_head"]},
-        "mesh": {"launches": mesh_launches["fused_head"]}}]
+        "mesh": {"launches": mesh_launches["fused_head"]},
+        "data_parallel": {"launches": dp_launches}}]
     # the B-spline kernels: launches on the cohort's path and times at the
     # SA strain path's 96^2 (the series of earlier slices), and under
     # "propagation" the aortic propagation's launches and times at its

@@ -713,8 +713,12 @@ def _refuse_conversion(prefix):
 
 
 def test_cli_refusals(ao_dataset, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a mesh needs window batches that divide, as in the JAX trainer
+    with pytest.raises(ValueError, match="requires batch_windows"):
         _train_cli(ao_dataset, tmp_path, "UNet", "--mesh_devices", "2")
+    with pytest.raises(ValueError, match=r"\(3 % 2 != 0\)"):
+        _train_cli(ao_dataset, tmp_path, "UNet", "--mesh_devices", "2",
+                   "--batch_windows", "3")
     # a TF --model_path reaches the converter (no longer refused)
     monkeypatch.setattr(tf_reader, "convert_tf_checkpoint",
                         _refuse_conversion)

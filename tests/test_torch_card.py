@@ -8,6 +8,7 @@ machine that has no JAX (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
 
+import functools
 import os
 
 import numpy as np
@@ -756,3 +757,91 @@ def test_mesh_on_one_card_matches_unsharded(card):
     for g, w in zip(got, want):
         assert g.device == w.device and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+
+def _dp_case(K=2, B=8, size=64):
+    """A K-step pool-slice case at small widths: a 3-level FCN at the
+    released filters, a random float16 slice pool and index batches,
+    bf16, the device augmenter on (``distributed.replica_steps``'s
+    keywords)."""
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    net = _random_fcn(n_level=3)
+    rng = np.random.RandomState(1)
+    pool = (rng.rand(3, 4, size, size).astype(np.float16),
+            rng.randint(0, 4, (3, 4, size, size)).astype(np.uint8))
+    batches = {"slot": rng.randint(0, 3, (K, B)).astype(np.int32),
+               "zidx": rng.randint(0, 4, (K, B)).astype(np.int32)}
+    return dict(net=net, make_loss=functools.partial(
+        tsa.make_fcn_loss, cfg=net.cfg, device_augment=True,
+        compute_dtype=torch.bfloat16), batches=batches,
+        seeds=list(range(1, K + 1)), builder="pool_slice", pool=pool,
+        channels_last=True)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_is_bitwise_the_single_card_step(card):
+    """A world of one NCCL rank on cuda:0 runs the DP pool step (the
+    gradient all-reduce, the division by one) and leaves the loss,
+    weights, BN state and Adam state of the single-card step bit for bit
+    (cuDNN deterministic in both: the rank takes the caller's
+    setting)."""
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    case = _dp_case()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = distributed.run(distributed.replica_steps, (), ["cuda:0"],
+                              backend="nccl", kwargs=case)
+        want = distributed.replica_steps(None, **case, device=card)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert torch.equal(got["losses"], want["losses"])
+    for k, v in want["state"].items():
+        assert torch.equal(got["state"][k], v), k
+    for i, st in want["adam"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got["adam"]["state"][i][k], v), (i, k)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_the_single_card_step(card):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card),
+    each on half of a float32 batch: global BatchNorm statistics and the
+    gradient all-reduce through gloo's host staging of CUDA tensors.  As
+    in ``test_train_step_on_card_matches_cpu``, a random net's weight
+    gradients move by about 1e-3 of a tensor's largest value with the
+    summation order alone: the ranks' gradients must differ from the
+    single-card step's by at most 4x the single card's own spread
+    (channels-last against contiguous), the BN statistics by 1e-5 of
+    each tensor's largest, the loss by 1e-5 relative and the aux by
+    1e-6."""
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    case = _dp_case(K=1)
+    case["make_loss"] = functools.partial(case["make_loss"].func,
+                                          **{**case["make_loss"].keywords,
+                                             "compute_dtype": None})
+    got = distributed.run(distributed.replica_steps, (),
+                          ["cuda:0", "cuda:0"], backend="gloo", kwargs=case)
+    want = distributed.replica_steps(None, **case, device=card)
+    nchw = distributed.replica_steps(None, **{**case,
+                                              "channels_last": False},
+                                     device=card)
+
+    def worst(a, part="grads", keys=None):
+        return max(float((a[part][k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-30)
+                   for k, v in want[part].items() if keys is None or keys(k))
+
+    spread = worst(nchw)
+    assert 0 < spread < 1e-2
+    assert set(got["grads"]) == set(want["grads"])
+    assert worst(got) <= 4 * spread
+    assert worst(got, "state", lambda k: "moving" in k) <= 1e-5
+    assert abs(float(got["losses"][0]) - float(want["losses"][0])) <= \
+        1e-5 * float(want["losses"][0])
+    for k, v in want["aux"].items():
+        assert abs(float(got["aux"][k]) - float(v)) <= 1e-6, k

@@ -120,6 +120,8 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.utils.cache",
     # the mesh slice's
     "ukbb_cardiac_tpu_torch.parallel.mesh",
+    # data-parallel training's
+    "ukbb_cardiac_tpu_torch.train.distributed",
 }
 
 

@@ -294,9 +294,9 @@ def test_bf16_step_matches_jax_bf16(bf16_reference, variant, monkeypatch):
     if variant == "all-bf16 control":
         ce, bn = tlosses.softmax_cross_entropy, tL.batch_norm
 
-        def bn_bf16(x, gamma, beta, mm, mv, train=False):
+        def bn_bf16(x, gamma, beta, mm, mv, train=False, group=None):
             if not (train and x.dtype == torch.bfloat16):
-                return bn(x, gamma, beta, mm, mv, train)
+                return bn(x, gamma, beta, mm, mv, train, group)
             shape = (1, -1, 1, 1)
             mean = x.mean((0, 2, 3))
             var = ((x - mean.view(shape)) ** 2).mean((0, 2, 3))
@@ -478,8 +478,34 @@ def test_adam_with_schedule_matches_optax():
         np.testing.assert_allclose(w.detach().numpy(), np.asarray(jw),
                                    rtol=1e-6, atol=(i + 1) * 1e-5 * 1e-2)
     assert tsteps.adam_with_schedule([w], 1e-3).__class__ is torch.optim.Adam
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsteps.make_dp_train_step(None, None, None)
+    # the schedule through the data-parallel step in a group of one
+    # process: its all-reduce and division by one change nothing
+    import tempfile
+
+    import torch.distributed as dist
+
+    init = tempfile.mkdtemp(prefix="dp_one_")
+    dist.init_process_group("gloo", init_method=f"file://{init}/rdv",
+                            world_size=1, rank=0)
+    try:
+        out = []
+        for dp in (False, True):
+            w = torch.nn.Parameter(torch.zeros(3))
+            opt = tsteps.adam_with_schedule([w], 1e-2, reduce_after=[2, 4])
+
+            def loss_fn(batch, seed, w=w):
+                return (w * batch["x"]).sum() ** 2 + w.sum(), {}
+
+            step = (tsteps.make_dp_train_step(loss_fn, opt,
+                                              dist.group.WORLD)
+                    if dp else tsteps.make_train_step(loss_fn, opt))
+            losses = [step({"x": torch.full((3,), 0.5 + i)}, i)[0]
+                      for i in range(6)]
+            out.append((torch.stack(losses), w.detach().clone()))
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1], out[1][1])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_chunk_lengths_and_seeds():
@@ -961,8 +987,17 @@ def test_cli_both_profiles_then_deploy(tmp_path):
 
 def test_cli_refusals(tmp_path, monkeypatch):
     _make_sa_dataset(str(tmp_path / "data"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        _train_cli(tmp_path, "reference", ["--mesh_devices", "2"])
+    # a data-parallel batch must divide, as in the JAX trainer; more
+    # ranks than cards raise
+    with pytest.raises(ValueError, match=r"mesh_devices \(5 % 2 != 0\)"):
+        _train_cli(tmp_path, "production", ["--batch_slices", "5",
+                                            "--mesh_devices", "2"])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="has 1"):
+            ttrain_cli.main(["--dataset_dir", str(tmp_path / "data"),
+                             "--mesh_devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain_cli.main(["--dataset_dir", str(tmp_path / "data"),

@@ -4,8 +4,9 @@ card.
 The JAX CLI's flags (``ukbb_cardiac_tpu/cli/train_network.py``) and its
 two profiles on the port's trainer (``train/sa.py``), plus ``--device``
 (default ``cuda``; without a card it raises unless ``--device cpu`` is
-given).  ``--mesh_devices`` above 1 raises: training over several cards
-is not ported (ROADMAP A14).
+given).  ``--mesh_devices N`` above 1 trains data-parallel: the command
+starts N processes itself, one per card (NCCL), or N CPU processes
+(gloo) with ``--device cpu``; more than the machine's cards raises.
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.train_network \
@@ -51,8 +52,11 @@ def main(argv=None):
     parser.add_argument("--checkpoint_dir", default="checkpoints")
     parser.add_argument("--log_dir", default="logs")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="0 or 1 = one card; more is not ported "
-                             "(raises).")
+                        help="Data-parallel ranks: 0 or 1 = one device; N "
+                             "> 1 starts N processes, one per card (N CPU "
+                             "processes with --device cpu).  The batch "
+                             "must divide by N; the device slice pool is "
+                             "then off unless --device_slices is given.")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device_augment", default=None,
                         action=argparse.BooleanOptionalAction,

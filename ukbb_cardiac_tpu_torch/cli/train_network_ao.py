@@ -6,8 +6,9 @@ on the port's trainer (``train/ao.py``), plus ``--device`` (default
 ``cuda``; without a card it raises unless ``--device cpu`` is given).
 ``--model_path`` takes an .npz bundle or a TF checkpoint prefix (converted
 first by ``ckpt/tf_reader.py``, which needs tensorflow on the host), and
-``--mesh_devices`` above 1 raises: training over several cards is not
-ported (ROADMAP A14).
+``--mesh_devices N`` above 1 trains data-parallel in N processes the
+command starts itself, one per card (N CPU processes with ``--device
+cpu``); ``--batch_windows`` must divide by N.
 
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.train_network_ao \
@@ -77,8 +78,10 @@ def main(argv=None):
                              "resident cine pool, GiB "
                              "(train/device_pool.py).")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="0 or 1 = one card; more is not ported "
-                             "(raises).")
+                        help="Data-parallel ranks: 0 or 1 = one device; N "
+                             "> 1 starts N processes, one per card (N CPU "
+                             "processes with --device cpu); needs "
+                             "--batch_windows divisible by N.")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu'.")

@@ -13,8 +13,10 @@ level 2, and shares the FCN's multiscale head.
 NCHW inside; :func:`apply_fcn` takes (N, X, Y, C) images and returns
 (N, X, Y, n_class) logits like the JAX function.  ``train=True`` runs the
 training forward: batch-statistics BatchNorm whose moving statistics
-update in place, and by default the sum-of-levels head.  The U-Net is
-``models/unet.py``.
+update in place, and by default the sum-of-levels head; in data-parallel
+training the statistics are the global batch's, over the process group
+that ``layers.batch_norm_group`` sets on every BatchNorm for the
+forward.  The U-Net is ``models/unet.py``.
 """
 
 from __future__ import annotations

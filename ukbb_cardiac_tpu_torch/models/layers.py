@@ -18,6 +18,12 @@ package's TF semantics:
   update is written out here; ``F.batch_norm`` only normalises (one
   fused pass forward and backward instead of about ten elementwise
   ones), and hands the batch statistics over in scratch buffers.
+- Data-parallel training (``train/distributed.py``): with a process group
+  of more than one rank, train-mode BatchNorm takes global-batch
+  statistics, as the JAX package's one GSPMD program does over its
+  sharded batch.  A loss closure names the group for the duration of its
+  forward (:func:`batch_norm_group`), which sets it on every BatchNorm of
+  the model; the backward reuses the group its all-reduces recorded.
 - ``tf.nn.conv2d_transpose`` / ``conv3d_transpose`` ('SAME'): the bundles
   store these kernels already flipped, in correlation orientation, for an
   input-dilated convolution.  Here they run as ``F.conv_transpose2d`` /
@@ -30,11 +36,13 @@ package's TF semantics:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -130,8 +138,26 @@ def conv3d_transpose(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Differentiable all-reduce sum: the backward all-reduces the
+    cotangent, as ``torch.distributed.nn.functional.all_reduce`` does
+    (deprecated in recent PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        out = tensor.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
 def batch_norm(x: torch.Tensor, gamma, beta, moving_mean,
-               moving_variance, train: bool = False) -> torch.Tensor:
+               moving_variance, train: bool = False,
+               group=None) -> torch.Tensor:
     """BatchNorm over the channel axis (dim 1) of a 4D or 5D input,
     computed in float32 and cast back to the input dtype.
 
@@ -144,7 +170,16 @@ def batch_norm(x: torch.Tensor, gamma, beta, moving_mean,
     In training ``F.batch_norm`` normalises (float32 statistics for a
     bfloat16 input too) and, at momentum 1, leaves the batch mean and
     the *unbiased* variance in two scratch buffers; the update below
-    takes the biased variance, ``unbiased * (n - 1) / n``."""
+    takes the biased variance, ``unbiased * (n - 1) / n``.
+
+    ``group``: a process group of more than one rank, each holding an
+    equal shard, makes the statistics those of the global batch, two-pass
+    as ``jnp.mean`` / ``jnp.var``: the all-reduced sum over the global
+    count, then the all-reduced sum of squared deviations over it.  The
+    moving statistics then stay equal on every rank."""
+    if train and group is not None and dist.get_world_size(group) > 1:
+        return _global_batch_norm(x, gamma, beta, moving_mean,
+                                  moving_variance, group)
     if train:
         n = x.numel() // x.shape[1]
         mean = torch.zeros_like(moving_mean)
@@ -163,11 +198,52 @@ def batch_norm(x: torch.Tensor, gamma, beta, moving_mean,
     return y.to(x.dtype)
 
 
+def _global_batch_norm(x, gamma, beta, moving_mean, moving_variance, group):
+    """Train-mode BatchNorm with the statistics of every rank's batch;
+    the ranks hold equal shards."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = x.float()
+    n = (x.numel() // x.shape[1]) * dist.get_world_size(group)
+    mean = _AllReduceSum.apply(xf.sum(dims), group) / n
+    d = xf - mean.view(shape)
+    var = _AllReduceSum.apply((d * d).sum(dims), group) / n
+    y = d * (torch.rsqrt(var + BN_EPSILON) * gamma).view(shape) \
+        + beta.view(shape)
+    with torch.no_grad():
+        moving_mean.copy_(moving_mean * BN_MOMENTUM
+                          + mean * (1 - BN_MOMENTUM))
+        moving_variance.copy_(moving_variance * BN_MOMENTUM
+                              + var * (1 - BN_MOMENTUM))
+    return y.to(x.dtype)
+
+
+def _batch_norms(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, (ConvBN, BN))]
+
+
+@contextlib.contextmanager
+def batch_norm_group(model: nn.Module, group):
+    """Within the block, every train-mode BatchNorm of ``model`` takes its
+    statistics over ``group`` (None: this process's batch alone); the
+    earlier groups come back after it."""
+    saved = [(m, m.bn_group) for m in _batch_norms(model)]
+    for m, _ in saved:
+        m.bn_group = group
+    try:
+        yield
+    finally:
+        for m, g in saved:
+            m.bn_group = g
+
+
 class ConvBN(nn.Module):
     """conv (no bias) -> BN(eval) -> ReLU (``network.py:19-52``); the
     output keeps the input dtype.  ``dims`` 2 or 3; ``transpose`` makes
     the conv a TF-SAME transposed one whose kernel is stored in
     correlation orientation, as in the bundles."""
+
+    bn_group = None  # train-mode statistics over this process group
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride=1, dims: int = 2, transpose: bool = False):
@@ -184,7 +260,7 @@ class ConvBN(nn.Module):
 
     def bn(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return batch_norm(x, self.gamma, self.beta, self.moving_mean,
-                          self.moving_variance, train)
+                          self.moving_variance, train, self.bn_group)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         if self.dims == 2:
@@ -201,6 +277,8 @@ class BN(nn.Module):
     """A BatchNorm's parameters and moving statistics, for the residual
     unit's pre-activations."""
 
+    bn_group = None
+
     def __init__(self, ch: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(ch))
@@ -210,7 +288,7 @@ class BN(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return batch_norm(x, self.gamma, self.beta, self.moving_mean,
-                          self.moving_variance, train)
+                          self.moving_variance, train, self.bn_group)
 
 
 class ResidualUnit(nn.Module):

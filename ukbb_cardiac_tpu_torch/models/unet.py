@@ -9,7 +9,8 @@ the tensor the UNet-LSTM head consumes.
 
 NCHW (NCDHW, time as depth) inside; :func:`apply_unet` and
 :func:`apply_temporal_unet` take and return the JAX package's
-channels-last layouts.
+channels-last layouts.  Train-mode BatchNorm takes the global batch's
+statistics under ``layers.batch_norm_group`` (data-parallel training).
 """
 
 from __future__ import annotations

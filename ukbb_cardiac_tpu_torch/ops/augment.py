@@ -138,14 +138,29 @@ def augment_with_params(image: torch.Tensor, label: torch.Tensor, params,
     return img, lab
 
 
+def sample_shard_params(generator: torch.Generator, n: int, shift, rotate,
+                        scale, intensity, device=None, shard=None):
+    """:func:`sample_params` for this rank's ``n`` rows of a batch split
+    evenly over ranks: ``shard`` (rank, world) draws the parameters of
+    the global batch of world x n rows and keeps rows [rank n, (rank + 1)
+    n), so every split of a batch draws what one process would."""
+    rank, world = shard or (0, 1)
+    params = sample_params(generator, n * world, shift, rotate, scale,
+                           intensity, device=device)
+    if world == 1:
+        return params
+    return {k: v[rank * n:(rank + 1) * n] for k, v in params.items()}
+
+
 def data_augmenter_torch(generator: torch.Generator, image: torch.Tensor,
                          label: torch.Tensor, shift, rotate, scale,
-                         intensity, flip: bool):
+                         intensity, flip: bool, shard=None):
     """Device augmenter: an independent transform per slice, drawn from
     ``generator`` (on the images' device).  image (N, X, Y, C), label
-    (N, X, Y) -> (float32 image, int32 label)."""
-    params = sample_params(generator, image.shape[0], shift, rotate, scale,
-                           intensity, device=image.device)
+    (N, X, Y) -> (float32 image, int32 label).  ``shard``: (rank, world)
+    of a data-parallel step (:func:`sample_shard_params`)."""
+    params = sample_shard_params(generator, image.shape[0], shift, rotate,
+                                 scale, intensity, image.device, shard)
     return augment_with_params(image, label, params, flip)
 
 
@@ -200,12 +215,13 @@ def aortic_augment_with_params(images: torch.Tensor, labels: torch.Tensor,
 def aortic_batch_augmenter_torch(generator: torch.Generator,
                                  images: torch.Tensor, labels: torch.Tensor,
                                  shift, rotate, scale, intensity,
-                                 flip: bool):
+                                 flip: bool, shard=None):
     """Device augmenter for a batch of windows (B, T, X, Y, C) / (B, T, X,
     Y): an independent window-consistent transform per window, drawn from
     ``generator`` (on the images' device) — the twin of drawing
     :func:`aortic_data_augmenter` once per window in the host sampler
-    (``train_network_ao.py:190-196``)."""
-    params = sample_params(generator, images.shape[0], shift, rotate, scale,
-                           intensity, device=images.device)
+    (``train_network_ao.py:190-196``).  ``shard``: (rank, world) of a
+    data-parallel step (:func:`sample_shard_params`)."""
+    params = sample_shard_params(generator, images.shape[0], shift, rotate,
+                                 scale, intensity, images.device, shard)
     return aortic_augment_with_params(images, labels, params, flip)

@@ -28,8 +28,10 @@ As in the JAX trainer: metrics go to ``train_log.jsonl`` every
 which both packages read, and the production options — fixed-size window
 batches, K steps per call, device augmentation, bf16 activations, compact
 transfer, a subject cache and a device-resident cine pool — keep the
-windows the reference would draw.  Training over several cards is not
-ported (``mesh_devices > 1`` raises, ROADMAP A14).
+windows the reference would draw.  ``mesh_devices`` N > 1 trains
+data-parallel over N ranks (``train/distributed.py``), as the SA trainer
+does (``train/sa.py``); as in the JAX trainer it needs ``batch_windows``
+divisible by N.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ukbb_cardiac_tpu_torch.ckpt import convert, store
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.models import convlstm, wrappers
 from ukbb_cardiac_tpu_torch.models.fcn import init_weights
+from ukbb_cardiac_tpu_torch.models.layers import batch_norm_group
 from ukbb_cardiac_tpu_torch.models.unet import UNet, UNetConfig
 from ukbb_cardiac_tpu_torch.ops.augment import (aortic_batch_augmenter_torch,
                                                 aortic_data_augmenter)
@@ -104,7 +107,7 @@ class AoTrainConfig:
     # bf16 activations (the ConvLSTM's cell state stays float32);
     # params, BN statistics, logits and loss float32
     bf16: bool = False
-    mesh_devices: int = 0      # >1 (several cards) is not ported
+    mesh_devices: int = 0      # >1: data-parallel over this many ranks
     # keep normalised cines resident on the device and gather each
     # step's windows there (train/device_pool.py); requires batch_windows
     # and device_augment
@@ -433,7 +436,7 @@ def init_ao_model(cfg: AoTrainConfig,
 def make_ao_loss(cfg: AoTrainConfig, net: torch.nn.Module,
                  train: bool = True, device_augment: bool = False,
                  shift=0.0, rotate=10.0, scale=0.2, intensity=0.0,
-                 flip=False, compute_dtype=None):
+                 flip=False, compute_dtype=None, group=None):
     """Loss closure per model kind (``train_network_ao.py:285-317``):
     ``loss_fn(batch, seed) -> (loss, aux)`` with accuracy and the AAo /
     DAo Dice of the centre frame.  ``train=False`` is the evaluation twin
@@ -444,9 +447,44 @@ def make_ao_loss(cfg: AoTrainConfig, net: torch.nn.Module,
 
     ``device_augment``: the window-consistent affine runs on the device
     from a generator seeded with the step's ``seed``; UNet batches then
-    arrive grouped by window (N, T, X, Y, 1) and fold after it."""
+    arrive grouped by window (N, T, X, Y, 1) and fold after it.
+    ``group``: the process group of a data-parallel step, the batch this
+    rank's equal shard of windows: global BatchNorm statistics,
+    augmentation parameters and aux metrics (``train.sa.make_fcn_loss``).
+    """
     dtype = compute_dtype or torch.float32
     generators = {}
+    shard = steps_lib.group_shard(group)
+    classes = [("dice_aa", 1), ("dice_da", 2)]
+
+    def forward(images, labels):
+        s = (cfg.time_window - 1) // 2
+        if cfg.model == "UNet":
+            if images.dim() == 5:  # window-grouped input
+                images = images.flatten(0, 1)
+                labels = labels.flatten(0, 1)
+            loss, _, pred = wrappers.unet_model(net, images, labels, train,
+                                                dtype)
+            return loss, pred, labels
+        if cfg.model == "Temporal-UNet":
+            loss, _, pred = wrappers.temporal_unet_model(
+                net, images, labels, train, cfg.weight_R, cfg.weight_r,
+                dtype)
+            return loss, pred[:, s], labels[:, s]
+        kw = dict(train_unet=cfg.joint_train, seq2seq=cfg.seq2seq,
+                  weight_R=cfg.weight_R, weight_r=cfg.weight_r,
+                  compute_dtype=dtype)
+        if cfg.joint_train and not train:
+            saved = [b.clone() for b in net.unet.buffers()]
+            loss, _, pred = wrappers.unet_lstm_model(net, images, labels,
+                                                     **kw)
+            with torch.no_grad():
+                for b, v in zip(net.unet.buffers(), saved):
+                    b.copy_(v)
+        else:
+            loss, _, pred = wrappers.unet_lstm_model(net, images, labels,
+                                                     **kw)
+        return loss, pred[:, s], labels[:, s]
 
     def loss_fn(batch, seed: int):
         # compact batches (f16 image / uint8 label) are cast here
@@ -459,42 +497,12 @@ def make_ao_loss(cfg: AoTrainConfig, net: torch.nn.Module,
                     device=images.device)
             gen.manual_seed(seed)
             images, labels = aortic_batch_augmenter_torch(
-                gen, images, labels, shift, rotate, scale, intensity, flip)
-        s = (cfg.time_window - 1) // 2
-        if cfg.model == "UNet":
-            if images.dim() == 5:  # window-grouped input
-                images = images.flatten(0, 1)
-                labels = labels.flatten(0, 1)
-            loss, _, pred = wrappers.unet_model(net, images, labels, train,
-                                                dtype)
-            pred_fr, label_fr = pred, labels
-        elif cfg.model == "Temporal-UNet":
-            loss, _, pred = wrappers.temporal_unet_model(
-                net, images, labels, train, cfg.weight_R, cfg.weight_r,
-                dtype)
-            pred_fr, label_fr = pred[:, s], labels[:, s]
-        else:
-            kw = dict(train_unet=cfg.joint_train, seq2seq=cfg.seq2seq,
-                      weight_R=cfg.weight_R, weight_r=cfg.weight_r,
-                      compute_dtype=dtype)
-            if cfg.joint_train and not train:
-                saved = [b.clone() for b in net.unet.buffers()]
-                loss, _, pred = wrappers.unet_lstm_model(net, images, labels,
-                                                         **kw)
-                with torch.no_grad():
-                    for b, v in zip(net.unet.buffers(), saved):
-                        b.copy_(v)
-            else:
-                loss, _, pred = wrappers.unet_lstm_model(net, images, labels,
-                                                         **kw)
-            pred_fr, label_fr = pred[:, s], labels[:, s]
-        with torch.no_grad():
-            aux = {"accuracy": (pred_fr == label_fr).float().mean()}
-            for name, k in (("dice_aa", 1), ("dice_da", 2)):
-                a, b = pred_fr == k, label_fr == k
-                aux[name] = (2 * (a & b).sum() / torch.clamp(
-                    a.sum() + b.sum(), min=1e-7))
-        return loss, aux
+                gen, images, labels, shift, rotate, scale, intensity, flip,
+                shard)
+        with batch_norm_group(net, group):
+            loss, pred_fr, label_fr = forward(images, labels)
+        return loss, steps_lib.segmentation_aux(pred_fr, label_fr, classes,
+                                                group)
 
     return loss_fn
 
@@ -536,7 +544,7 @@ def bundle_trees(net: torch.nn.Module, names):
 
 
 def _make_device_window_pipeline(cfg: AoTrainConfig, train_list, K, rng,
-                                 cache, device):
+                                 cache, device, verbose: bool = True):
     """Size and build the device cine pool and its index sampler.
 
     ``t_max`` comes from a header-only scan of the training cines; the
@@ -569,8 +577,9 @@ def _make_device_window_pipeline(cfg: AoTrainConfig, train_list, K, rng,
             f"chunk may pin {min_slots}; raise pool_gb or lower "
             "batch_windows/steps_per_dispatch")
     pool = DeviceCinePool(n_slots, t_max, s, s, device)
-    print(f"Device window pool: {n_slots} slots x T{t_max} @ {s}x{s} "
-          f"({pool.nbytes / 2 ** 30:.2f} GiB)")
+    if verbose:
+        print(f"Device window pool: {n_slots} slots x T{t_max} @ {s}x{s} "
+              f"({pool.nbytes / 2 ** 30:.2f} GiB)")
     sample = make_device_window_sampler(
         train_list, cfg.batch_windows, pool, image_size=cfg.image_size,
         time_window=cfg.time_window, z_score=cfg.z_score, rng=rng,
@@ -578,11 +587,7 @@ def _make_device_window_pipeline(cfg: AoTrainConfig, train_list, K, rng,
     return pool, sample
 
 
-def _check_config(cfg: AoTrainConfig, K: int):
-    if cfg.mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1: training over several cards is not ported "
-            "(ROADMAP A14)")
+def _check_config(cfg: AoTrainConfig, K: int, world: int):
     if cfg.model not in KINDS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if K > 1 and cfg.batch_windows <= 0:
@@ -596,19 +601,73 @@ def _check_config(cfg: AoTrainConfig, K: int):
             raise ValueError("device_windows requires device_augment: the "
                              "windows never exist on the host, so the "
                              "affine augmentation must run in the step")
+    if world > 1:
+        if cfg.batch_windows <= 0:
+            raise ValueError("mesh_devices > 1 requires batch_windows "
+                             "(a static batch to shard evenly)")
+        if cfg.batch_windows % world:
+            raise ValueError("batch_windows must divide evenly over "
+                             f"mesh_devices ({cfg.batch_windows} % "
+                             f"{world} != 0)")
 
 
 def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
-          progress_every: int = 100):
+          progress_every: int = 100, *, devices=None,
+          backend: Optional[str] = None):
     """Run the training loop.  Returns (net, names, ucfg, stats).
 
     ``stats``: iterations run, and from the end of the first call on
     (warm-up excluded) the step loop's seconds (validation and
     checkpoints excluded), the seconds it waited for the next chunk, and
-    the steps it ran."""
+    the steps it ran.  With ``mesh_devices`` > 1, or ``devices`` /
+    ``backend`` (``train.sa.train``), the ranks run in processes of their
+    own and the returned net and stats are rank 0's."""
     K = max(1, int(cfg.steps_per_dispatch))
-    _check_config(cfg, K)
+    world = len(devices) if devices is not None else cfg.mesh_devices
+    _check_config(cfg, K, world)
     device = resolve_device(cfg.device)
+    if devices is None and cfg.mesh_devices <= 1:
+        return _train(cfg, K, device, max_iterations, progress_every)
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    ranks = distributed.rank_devices(world, cfg.device, devices)
+    sd, names, ucfg, stats = distributed.run(
+        train_rank, (cfg, K, max_iterations, progress_every), ranks,
+        backend)
+    _, net, _ = init_ao_model(cfg)
+    net.load_state_dict(sd)
+    fmt = (torch.preserve_format if cfg.model == "Temporal-UNet"
+           else torch.channels_last)
+    return net.to(ranks[0], memory_format=fmt), names, ucfg, stats
+
+
+def train_rank(rank, cfg: AoTrainConfig, K: int,
+               max_iterations: Optional[int] = None,
+               progress_every: int = 100):
+    """One data-parallel rank's share of :func:`train` (as
+    ``train.sa.train_rank``).  Returns the state dict on the CPU with the
+    names, config and stats (``distributed.rank_stats``, with the peak
+    memory of this job alone)."""
+    from ukbb_cardiac_tpu_torch.train.distributed import rank_stats
+
+    _check_config(cfg, K, rank.world)
+    started = time.time()
+    if rank.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(rank.device)
+    net, names, ucfg, stats = _train(
+        cfg, K, resolve_device(str(rank.device)), max_iterations,
+        progress_every, rank)
+    return ({k: v.cpu() for k, v in net.state_dict().items()}, names, ucfg,
+            rank_stats(rank, stats, started))
+
+
+def _train(cfg: AoTrainConfig, K: int, device, max_iterations,
+           progress_every, rank=None):
+    """The training loop on ``device``; in a data-parallel ``rank``
+    (``distributed.Rank``) its share of it."""
+    group = rank.group if rank is not None else None
+    shard = (rank.rank, rank.world) if rank is not None else None
+    lead = rank is None or rank.rank == 0
     data_list = scan_dataset_ao(cfg.dataset_dir, cfg.seq_name)
     if not data_list["train"]:
         raise FileNotFoundError(
@@ -620,7 +679,8 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
         if not cfg.model_path:
             raise ValueError("UNet-LSTM needs --model_path (pre-trained "
                              "UNet) unless --from_scratch")
-        print("Restore pre-trained UNet weights...")
+        if lead:
+            print("Restore pre-trained UNet weights...")
         restore_pretrained_unet(net, cfg.model_path)
     # channels-last 2D convolutions skip cuDNN's layout transposes and
     # take PyTorch's channels-last BatchNorm kernels (train/sa.py)
@@ -632,21 +692,31 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
     loss_fn = make_ao_loss(cfg, net, device_augment=cfg.device_augment,
                            shift=0, rotate=10, scale=0.2, intensity=0,
                            flip=False,
-                           compute_dtype=torch.bfloat16 if cfg.bf16 else None)
+                           compute_dtype=torch.bfloat16 if cfg.bf16 else None,
+                           group=group)
+    # validation runs on rank 0 alone: its statistics are its own batch's
     eval_loss = make_ao_loss(cfg, net, train=False)
     eval_step = steps_lib.make_eval_step(lambda batch: eval_loss(batch, 0))
     if cfg.device_windows:
-        from ukbb_cardiac_tpu_torch.train.device_pool import \
-            make_pool_window_multi_step
+        from ukbb_cardiac_tpu_torch.train import device_pool
+
         step = None
-        multi_step = make_pool_window_multi_step(loss_fn, optimizer)
-    else:
+        multi_step = (
+            device_pool.make_pool_window_multi_step(loss_fn, optimizer)
+            if group is None else device_pool.make_pool_window_multi_dp_step(
+                loss_fn, optimizer, group))
+    elif group is None:
         step = steps_lib.make_train_step(loss_fn, optimizer)
         multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
+    else:
+        step = steps_lib.make_dp_train_step(loss_fn, optimizer, group)
+        multi_step = steps_lib.make_multi_dp_train_step(loss_fn, optimizer,
+                                                        group)
 
     model_dir = os.path.join(cfg.checkpoint_dir, cfg.model_name)
-    os.makedirs(model_dir, exist_ok=True)
-    log_f = open(os.path.join(model_dir, "train_log.jsonl"), "a")
+    if lead:
+        os.makedirs(model_dir, exist_ok=True)
+        log_f = open(os.path.join(model_dir, "train_log.jsonl"), "a")
 
     rng = random.Random(cfg.seed)
     # validation draws its own stream, so queue timing cannot change what
@@ -654,7 +724,8 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
     val_rng = random.Random(cfg.seed + 7_777_777)
     flatten = cfg.model == "UNet"
     total = max_iterations or cfg.train_iteration
-    print("Start training...")
+    if lead:
+        print("Start training...")
     start_time = time.time()
 
     from ukbb_cardiac_tpu_torch.train.prefetch import (BatchPrefetcher,
@@ -670,7 +741,7 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
     pool = None
     if cfg.device_windows:
         pool, sample = _make_device_window_pipeline(
-            cfg, data_list["train"], K, rng, cache, device)
+            cfg, data_list["train"], K, rng, cache, device, lead)
     elif cfg.batch_windows > 0:
         sample = make_window_pool_sampler(
             data_list["train"], cfg.batch_windows, image_size=cfg.image_size,
@@ -702,12 +773,14 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
     stage = make_stage(device)
     if cfg.device_windows:
         build_input = make_pool_chunk_builder(prefetcher, pool, K, total,
-                                              cadences, stage)
+                                              cadences, stage, shard)
     else:
         build_input = make_chunk_builder(prefetcher, K, total, cadences,
-                                         stage)
+                                         stage, shard)
 
     def side_work(iteration, loss, aux, t0, k_now):
+        if not lead:
+            return
         if iteration % cfg.validation_every == 0:
             rec = {"iteration": iteration, "loss": float(loss),
                    "accuracy": float(aux["accuracy"]),
@@ -748,6 +821,8 @@ def train(cfg: AoTrainConfig, max_iterations: Optional[int] = None,
                            0, total, cadences, device, side_work)
     finally:
         prefetcher.close()
-        log_f.close()
-    print(f"Training took {time.time() - start_time:.3f}s.")
+        if lead:
+            log_f.close()
+    if lead:
+        print(f"Training took {time.time() - start_time:.3f}s.")
     return net, names, ucfg, stats

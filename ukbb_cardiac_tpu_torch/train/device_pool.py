@@ -7,8 +7,11 @@ goes to the device once, into a fixed slot of one (n_slots, t_max, X, Y)
 float16 image pool and one uint8 label pool; a train step gathers its
 (slot, z) index pairs or (slot, window frames, label frames) tuples from
 the pool, so the steady-state host-to-device traffic is a few bytes of
-indices per slice or window instead of its pixels.  Data-parallel pool
-steps over several cards are not ported (ROADMAP A14).
+indices per slice or window instead of its pixels.  In data-parallel
+training (``train/distributed.py``) every rank holds a whole pool of its
+own, filled by the same seeded sampler, and gathers its shard of each
+(K, B[, TW]) index batch from it: the JAX package's pool replicated over
+the mesh with the index batches sharded on B.
 
 Ordering, without the JAX design's copy-on-upload (JAX needed a fresh
 pool array per upload because donating the pool would invalidate the
@@ -161,14 +164,17 @@ def _gather_windows(flat_img, flat_lab, ib, t_max):
             "label": flat_lab[base + ib["lidx"].long()]}
 
 
-def _make_pool_multi_step(loss_fn, optimizer, gather):
-    """The one K-step body both pool steps share: flatten the pool,
+def _make_pool_multi_step(loss_fn, optimizer, gather, group=None):
+    """The one K-step body the four pool steps share: flatten the pool,
     ``gather`` the K batches from it by index and run
-    ``steps.make_multi_train_step`` on them.  The slice and window
-    variants differ only in the gather."""
-    from ukbb_cardiac_tpu_torch.train.steps import make_multi_train_step
+    ``steps.make_multi_train_step`` (``make_multi_dp_train_step`` in a
+    rank of ``group``) on them.  The variants differ only in the gather
+    and the step builder."""
+    from ukbb_cardiac_tpu_torch.train import steps
 
-    multi = make_multi_train_step(loss_fn, optimizer)
+    multi = (steps.make_multi_train_step(loss_fn, optimizer)
+             if group is None
+             else steps.make_multi_dp_train_step(loss_fn, optimizer, group))
 
     def multi_step(pool_img, pool_lab, batches, seeds):
         n_slots, t_max = pool_img.shape[:2]
@@ -194,6 +200,17 @@ def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     return _make_pool_multi_step(loss_fn, optimizer, _gather_slices)
 
 
+def make_pool_slice_multi_dp_step(loss_fn, optimizer: torch.optim.Optimizer,
+                                  group):
+    """Data-parallel :func:`make_pool_slice_multi_step` in one rank of
+    ``group``: ``pool_img`` / ``pool_lab`` are this rank's own pool
+    (every rank holds every drawn volume, in its own slots) and
+    ``batches`` this rank's shard (K, B / world) of the index batches; the
+    step is ``steps.make_multi_dp_train_step``'s (``loss_fn`` built for
+    ``group``)."""
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices, group)
+
+
 def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     """K steps per call whose batches are (slot, frame-index) tuples
     gathered from the pool on the device — the aortic twin of
@@ -206,3 +223,11 @@ def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     with ``compact_transfer``, so ``loss_fn`` (``train.ao.make_ao_loss``)
     is reused unchanged."""
     return _make_pool_multi_step(loss_fn, optimizer, _gather_windows)
+
+
+def make_pool_window_multi_dp_step(loss_fn,
+                                   optimizer: torch.optim.Optimizer, group):
+    """Data-parallel :func:`make_pool_window_multi_step`: this rank's own
+    pool, its shard of the (K, B, TW) index batches on B — the aortic
+    twin of :func:`make_pool_slice_multi_dp_step`."""
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows, group)

@@ -113,8 +113,19 @@ def make_stage(device) -> Callable:
     return stage
 
 
+def _rows(batch: dict, shard) -> dict:
+    """This rank's rows of every array of a batch (``shard`` (rank,
+    world); None keeps the batch whole)."""
+    if shard is None:
+        return batch
+    from ukbb_cardiac_tpu_torch.train.distributed import take_rows
+
+    return {k: take_rows(v, shard) for k, v in batch.items()}
+
+
 def make_chunk_builder(prefetcher: BatchPrefetcher, K: int, total: int,
-                       cadences: Sequence[int], stage: Callable):
+                       cadences: Sequence[int], stage: Callable,
+                       shard=None):
     """Build the K-step input of a training loop.
 
     Returns ``build_input(it) -> (k_now, batches, seeds, release)``:
@@ -123,12 +134,15 @@ def make_chunk_builder(prefetcher: BatchPrefetcher, K: int, total: int,
     one batch (``steps.make_train_step``); ``seeds`` the per-step seeds
     ``it + 1 .. it + k_now`` (the JAX trainer's ``PRNGKey(it + 1 ..)``);
     ``release()`` is a no-op here (see :func:`make_pool_chunk_builder`).
-    ``stage`` (:func:`make_stage`) sends the arrays to the device."""
+    ``stage`` (:func:`make_stage`) sends the arrays to the device.
+    ``shard`` (rank, world): a data-parallel rank stages only its rows of
+    each batch, on its own device (the JAX trainer's ``stage_local``); a
+    batch that does not divide raises ``ValueError``."""
 
     def build_input(it):
         k_now = chunk_length(it, K, total, cadences)
         seeds = list(range(it + 1, it + 1 + k_now))
-        chunk = [prefetcher.next() for _ in range(k_now)]
+        chunk = [_rows(prefetcher.next(), shard) for _ in range(k_now)]
         if k_now > 1:
             batches = stage({k: np.stack([b[k] for b in chunk])
                              for k in chunk[0]})
@@ -141,24 +155,26 @@ def make_chunk_builder(prefetcher: BatchPrefetcher, K: int, total: int,
 
 def make_pool_chunk_builder(prefetcher: BatchPrefetcher, pool, K: int,
                             total: int, cadences: Sequence[int],
-                            stage: Callable):
+                            stage: Callable, shard=None):
     """Build the K-step input of a device-pool training loop
     (``train/device_pool.py``).
 
     Returns ``build_input(it) -> (k_now, (pool_img, pool_lab, batches),
     seeds, release)`` with :func:`make_chunk_builder`'s chunk lengths and
-    seeds; ``batches`` are the (K, B) index tensors on the device.  The
-    chunk's slot pins hold until ``release()``, which the loop calls once
-    the step that gathers from them has been enqueued: an upload into a
-    released slot is then ordered after that gather."""
+    seeds; ``batches`` are the (K, B) index tensors on the device (with
+    ``shard``, this rank's rows).  The chunk's slot pins — every row's,
+    the other ranks' too — hold until ``release()``, which the loop calls
+    once the step that gathers from them has been enqueued: an upload
+    into a released slot is then ordered after that gather."""
 
     def build_input(it):
         k_now = chunk_length(it, K, total, cadences)
         seeds = list(range(it + 1, it + 1 + k_now))
         chunk = [prefetcher.next() for _ in range(k_now)]
         pool_img, pool_lab = pool.snapshot()
-        batches = stage({k: np.stack([b[k] for b in chunk])
-                         for k in chunk[0]})
+        rows = [_rows(b, shard) for b in chunk]
+        batches = stage({k: np.stack([b[k] for b in rows])
+                         for k in rows[0]})
 
         def release():
             for b in chunk:

@@ -22,8 +22,15 @@ device-resident slice pool — keep the batches the reference would draw.
 On the card the validation forward is the deploy's
 (``SegmentationModel.forward``: cuDNN encoder and the fused head kernel);
 the head's folded, packed weights are rebuilt at every validation, since
-every update makes them stale.  Training over several cards is not
-ported (``mesh_devices > 1`` raises, ROADMAP A14).
+every update makes them stale.
+
+``mesh_devices`` N > 1 trains data-parallel over N ranks
+(``train/distributed.py``; N cards, or N CPU processes with device
+``cpu``), as the JAX trainer's mesh step does: each rank draws the same
+global batches from the same seeded sampler and keeps its equal shard
+(with the slice pool, each rank's own pool), BatchNorm statistics, the
+augmentation and the aux metrics are the global batch's, gradients are
+averaged.  Validation, the log and checkpoints are rank 0's.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from ukbb_cardiac_tpu_torch.ckpt import convert, store
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.models import fcn as fcn_mod
 from ukbb_cardiac_tpu_torch.models import losses
+from ukbb_cardiac_tpu_torch.models.layers import batch_norm_group
 from ukbb_cardiac_tpu_torch.ops.augment import (data_augmenter,
                                                 data_augmenter_torch)
 from ukbb_cardiac_tpu_torch.ops.crop import crop_image
@@ -75,7 +83,7 @@ class SATrainConfig:
     validation_every: int = 10
     checkpoint_every: int = 1000
     seed: int = 0
-    mesh_devices: int = 0  # >1 (several cards) is not ported
+    mesh_devices: int = 0  # >1: data-parallel over this many ranks
     device_augment: bool = False  # augment on the device, in the step
     # K optimizer steps per call (steps.make_multi_train_step); requires
     # batch_slices (a static batch shape to stack)
@@ -341,7 +349,8 @@ def make_device_slice_sampler(filename_list, batch_slices: int, pool,
 
 def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
                   device_augment: bool = False, shift=0.0, rotate=10.0,
-                  scale=0.2, intensity=0.0, flip=False, compute_dtype=None):
+                  scale=0.2, intensity=0.0, flip=False, compute_dtype=None,
+                  group=None):
     """Loss closure for the train step: softmax CE + accuracy / Dice aux
     (``train_network.py:204-214``).  ``loss_fn(batch, seed) -> (loss,
     aux)``; the training forward updates the BN moving statistics.
@@ -349,9 +358,16 @@ def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
     ``device_augment``: the random affine augmentation runs on the device,
     in the step, from a generator seeded with the step's ``seed``.
     ``compute_dtype``: activation dtype (default float32); bfloat16 keeps
-    params, BN statistics, logits and the loss in float32."""
+    params, BN statistics, logits and the loss in float32.
+    ``group``: the process group of a data-parallel step
+    (``steps.make_dp_train_step``), the batch this rank's equal shard:
+    BatchNorm takes the global batch's statistics, the augmentation draws
+    the global batch's parameters and keeps this rank's rows, and the aux
+    metrics are the global batch's.  The loss stays the shard's mean."""
     dtype = compute_dtype or torch.float32
     generators = {}
+    shard = steps_lib.group_shard(group)
+    classes = [(f"dice_{k}", k) for k in range(1, cfg.n_class)]
 
     def loss_fn(batch, seed: int):
         # compact batches (f16 image / uint8 label) are cast here
@@ -365,23 +381,19 @@ def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
             gen.manual_seed(seed)
             image, label = data_augmenter_torch(gen, image, label, shift,
                                                 rotate, scale, intensity,
-                                                flip)
-        logits = fcn_mod.apply_fcn(net, image, compute_dtype=dtype,
-                                   train=True)
+                                                flip, shard)
+        with batch_norm_group(net, group):
+            logits = fcn_mod.apply_fcn(net, image, compute_dtype=dtype,
+                                       train=True)
         loss = losses.softmax_cross_entropy(logits, label, cfg.n_class)
-        with torch.no_grad():
-            pred = torch.argmax(logits, dim=-1)
-            aux = {"accuracy": (pred == label).float().mean()}
-            for k in range(1, cfg.n_class):
-                a, b = pred == k, label == k
-                aux[f"dice_{k}"] = (2 * (a & b).sum() / torch.clamp(
-                    a.sum() + b.sum(), min=1e-7))
-        return loss, aux
+        pred = torch.argmax(logits.detach(), dim=-1)
+        return loss, steps_lib.segmentation_aux(pred, label, classes, group)
 
     return loss_fn
 
 
-def _pool_for(cfg: SATrainConfig, train_list, K: int, device):
+def _pool_for(cfg: SATrainConfig, train_list, K: int, device,
+              verbose: bool = True):
     """A :class:`DeviceCinePool` sized from a header-only scan of the
     training volumes and ``cfg.pool_gb``."""
     from ukbb_cardiac_tpu_torch.train.device_pool import DeviceCinePool
@@ -414,16 +426,13 @@ def _pool_for(cfg: SATrainConfig, train_list, K: int, device):
             f"chunk may pin {min_slots}; raise pool_gb or lower "
             "batch_slices/steps_per_dispatch")
     pool = DeviceCinePool(n_slots, z_max, s, s, device)
-    print(f"Device slice pool: {n_slots} slots x Z{z_max} @ {s}x{s} "
-          f"({pool.nbytes / 2 ** 30:.2f} GiB)")
+    if verbose:
+        print(f"Device slice pool: {n_slots} slots x Z{z_max} @ {s}x{s} "
+              f"({pool.nbytes / 2 ** 30:.2f} GiB)")
     return pool
 
 
-def _check_config(cfg: SATrainConfig, K: int):
-    if cfg.mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1: training over several cards is not ported "
-            "(ROADMAP A14)")
+def _check_config(cfg: SATrainConfig, K: int, world: int):
     if K > 1 and cfg.batch_slices <= 0:
         raise ValueError("steps_per_dispatch > 1 requires batch_slices "
                          "(a static batch shape to stack K batches)")
@@ -435,10 +444,18 @@ def _check_config(cfg: SATrainConfig, K: int):
             raise ValueError("device_slices requires device_augment: the "
                              "pool holds un-augmented slices, so the "
                              "affine augmentation must run in-step")
+    if world > 1 and cfg.batch_slices > 0 and cfg.batch_slices % world:
+        # checked whatever K is; with batch_slices 0 (per-subject
+        # batches) each batch must divide, and one that does not raises
+        # at its step
+        raise ValueError("batch_slices must divide evenly over "
+                         f"mesh_devices ({cfg.batch_slices} % "
+                         f"{world} != 0)")
 
 
 def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
-          progress_every: int = 100, resume_from: Optional[str] = None):
+          progress_every: int = 100, resume_from: Optional[str] = None, *,
+          devices=None, backend: Optional[str] = None):
     """Run the training loop.  Returns (net, names, model_cfg, stats).
 
     ``resume_from``: a bundle written by this trainer or by the JAX
@@ -446,10 +463,65 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
     counter, adopting the bundle's architecture.  ``stats``: iterations
     run, and from the end of the first call on (warm-up excluded) the
     step loop's seconds (validation and checkpoints excluded), the
-    seconds it waited for the next chunk, and the steps it ran."""
+    seconds it waited for the next chunk, and the steps it ran.
+
+    With ``mesh_devices`` > 1 the ranks run in processes of their own
+    and the returned net and stats are rank 0's, the net on its device.
+    ``devices`` / ``backend`` name the ranks' devices and the group's
+    backend instead (``train/distributed.py``: several ranks on one card
+    over gloo, or one NCCL rank)."""
     K = max(1, int(cfg.steps_per_dispatch))
-    _check_config(cfg, K)
+    world = len(devices) if devices is not None else cfg.mesh_devices
+    _check_config(cfg, K, world)
     device = resolve_device(cfg.device)
+    if devices is None and cfg.mesh_devices <= 1:
+        return _train(cfg, K, device, max_iterations, progress_every,
+                      resume_from)
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    ranks = distributed.rank_devices(world, cfg.device, devices)
+    sd, names, model_cfg, stats = distributed.run(
+        train_rank, (cfg, K, max_iterations, progress_every, resume_from),
+        ranks, backend)
+    net = fcn_mod.FCN(model_cfg)
+    net.load_state_dict(sd)
+    return (net.to(ranks[0], memory_format=torch.channels_last), names,
+            model_cfg, stats)
+
+
+def train_rank(rank, cfg: SATrainConfig, K: int,
+               max_iterations: Optional[int] = None,
+               progress_every: int = 100, resume_from: Optional[str] = None):
+    """One data-parallel rank's share of :func:`train` (``rank`` a
+    ``distributed.Rank``; :func:`train` spawns the ranks with it, or a
+    caller runs it with other jobs through ``distributed.run_in_turn``).
+    Returns the state dict on the CPU with the names, config and stats
+    (``distributed.rank_stats``, with the peak memory of this job alone,
+    and the head kernel's launches in this rank's validations)."""
+    from ukbb_cardiac_tpu_torch.models.fused_head import fused_head
+    from ukbb_cardiac_tpu_torch.train.distributed import rank_stats
+
+    _check_config(cfg, K, rank.world)
+    started = time.time()
+    launched = fused_head.launches
+    if rank.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(rank.device)
+    net, names, model_cfg, stats = _train(
+        cfg, K, resolve_device(str(rank.device)), max_iterations,
+        progress_every, resume_from, rank)
+    stats = rank_stats(rank, stats, started)
+    stats["fused_head_launches"] = fused_head.launches - launched
+    return ({k: v.cpu() for k, v in net.state_dict().items()}, names,
+            model_cfg, stats)
+
+
+def _train(cfg: SATrainConfig, K: int, device, max_iterations,
+           progress_every, resume_from, rank=None):
+    """The training loop on ``device``; in a data-parallel ``rank``
+    (``distributed.Rank``) its share of it."""
+    group = rank.group if rank is not None else None
+    shard = (rank.rank, rank.world) if rank is not None else None
+    lead = rank is None or rank.rank == 0
     data_list = scan_dataset(cfg.dataset_dir, cfg.seq_name)
     if not data_list["train"]:
         raise FileNotFoundError(
@@ -469,7 +541,9 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
                              "bundle")
         net = convert.fcn_from_jax(params, state, names, model_cfg)
         start_iteration = int(extra.get("iteration", 0))
-        print(f"Resumed from {resume_from} at iteration {start_iteration}.")
+        if lead:
+            print(f"Resumed from {resume_from} at iteration "
+                  f"{start_iteration}.")
     else:
         names = convert.fcn_names(model_cfg)
         net = fcn_mod.init_weights(fcn_mod.FCN(model_cfg),
@@ -489,25 +563,36 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
             convert.load_adam_leaves(optimizer, net, layout, leaves)
 
     loss_fn = make_fcn_loss(net, model_cfg, device_augment=cfg.device_augment,
-                            compute_dtype=torch.bfloat16 if cfg.bf16 else None)
+                            compute_dtype=torch.bfloat16 if cfg.bf16 else None,
+                            group=group)
     if cfg.device_slices:
-        from ukbb_cardiac_tpu_torch.train.device_pool import \
-            make_pool_slice_multi_step
-        step, multi_step = None, make_pool_slice_multi_step(loss_fn, optimizer)
-    else:
+        from ukbb_cardiac_tpu_torch.train import device_pool
+
+        step = None
+        multi_step = (
+            device_pool.make_pool_slice_multi_step(loss_fn, optimizer)
+            if group is None else device_pool.make_pool_slice_multi_dp_step(
+                loss_fn, optimizer, group))
+    elif group is None:
         step = steps_lib.make_train_step(loss_fn, optimizer)
         multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
+    else:
+        step = steps_lib.make_dp_train_step(loss_fn, optimizer, group)
+        multi_step = steps_lib.make_multi_dp_train_step(loss_fn, optimizer,
+                                                        group)
 
     model_dir = os.path.join(cfg.checkpoint_dir or ".", cfg.model_name)
-    os.makedirs(model_dir, exist_ok=True)
-    log_f = open(os.path.join(model_dir, "train_log.jsonl"), "a")
+    if lead:
+        os.makedirs(model_dir, exist_ok=True)
+        log_f = open(os.path.join(model_dir, "train_log.jsonl"), "a")
 
     rng = random.Random(cfg.seed + start_iteration)
     # validation draws its own stream, so queue timing cannot change what
     # a fixed seed samples
     val_rng = random.Random(cfg.seed + 7_777_777 + start_iteration)
     total = max_iterations or cfg.train_iteration
-    print("Start training...")
+    if lead:
+        print("Start training...")
     start_time = time.time()
 
     from ukbb_cardiac_tpu_torch.train.prefetch import (BatchPrefetcher,
@@ -519,7 +604,7 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
              if cfg.cache_gb > 0 else None)
     pool = None
     if cfg.device_slices:
-        pool = _pool_for(cfg, data_list["train"], K, device)
+        pool = _pool_for(cfg, data_list["train"], K, device, lead)
         sample = make_device_slice_sampler(
             data_list["train"], cfg.batch_slices, pool,
             image_size=cfg.image_size, rng=rng, cache=cache)
@@ -550,12 +635,14 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
     stage = make_stage(device)
     if cfg.device_slices:
         build_input = make_pool_chunk_builder(prefetcher, pool, K, total,
-                                              cadences, stage)
+                                              cadences, stage, shard)
     else:
         build_input = make_chunk_builder(prefetcher, K, total, cadences,
-                                         stage)
+                                         stage, shard)
 
     def side_work(iteration, loss, aux, t0, k_now):
+        if not lead:
+            return
         if iteration % cfg.validation_every == 0 and \
                 data_list["validation"]:
             v_images, v_labels = get_random_batch(
@@ -592,8 +679,10 @@ def train(cfg: SATrainConfig, max_iterations: Optional[int] = None,
                            side_work)
     finally:
         prefetcher.close()
-        log_f.close()
-    print(f"Training took {time.time() - start_time:.3f}s.")
+        if lead:
+            log_f.close()
+    if lead:
+        print(f"Training took {time.time() - start_time:.3f}s.")
     return net, names, model_cfg, stats
 
 
