@@ -34,7 +34,13 @@
    subject on the card, checks that both B-spline kernels launched,
    prints per subject the strain wall and device span, pairs, crop,
    global Ecc/Err and warp-Dice, and compares the card's strain tables
-   with the port's CPU path on a reduced subject (6 frames);
+   with the port's CPU path on a reduced subject (6 frames).  The
+   registration and the field stages replay CUDA graphs
+   (``reg/programs.py``): the first subject captures them (their capture
+   seconds and memory printed), and the last subject's registration and
+   fields run on the eager route and through the graphs (ms, device ops,
+   idle share under torch.profiler; strain tables, warp-Dice and fields
+   bitwise equal, or within the CPU bounds with the reason printed);
 5. drives the cohort CLI (``cli.run_cohort``) in full mode — the SA
    chain, then the la_2ch / la_4ch / seg4 deploys with the trained LA
    bundles (2, 3 and 6 classes), atrial volumes, LA strain, and the
@@ -42,12 +48,15 @@
    — on 3 full-size subjects (SA (192, 208, 10, 50), LA (192, 208, 1, 50),
    aortic (240, 196, 1, 100) int16), with 1 worker (the default), then
    with 3 on the shared default stream and on a stream per worker
-   (shared, own, own, shared); prints for each run the cohort wall,
+   (shared, own, own, shared), then with 1 again once every shape's
+   graphs are captured; prints for each run the cohort wall,
    subjects/s, median stage seconds and launches per subject, head
    launches by number of classes; checks every subject, the aggregate
    tables, LA Dice against the truth, LA labels and the atrial row of the
    port's CPU deploy against the card's, and the card's LA strain against
-   the CPU's on a reduced subject; prints one subject's LA strain alone
+   the CPU's on a reduced subject, and every 3-worker run's tables
+   against the 1-worker run's (equal); prints one subject's LA strain
+   alone (graphs and the eager route, bitwise compared)
    (launches, device span) and each LA cine's device span;
 6. the aortic stage: Dice of the cohort's aortic segs against the
    phantom truth, the device span per aortic cine, the U-Net's and the
@@ -75,8 +84,10 @@
    (240, 196, 1, 100) int16 annotated at ED and ES and runs
    ``cli.propagate_aortic_annotation`` on the card (per subject wall,
    registration device span, pairs, crop, Dice against the truth; both
-   B-spline kernels' launches) and holds the card's labels to the port's
-   CPU path on a 10-frame cut; then ``cli.train_network_ao`` on the
+   B-spline kernels' launches), one registration at its shape replaying
+   the graphs and on the eager route (span, device operations, idle
+   share; fields bitwise compared), and holds the card's labels to the
+   port's CPU path on a 10-frame cut; then ``cli.train_network_ao`` on the
    propagated labels at the released UNet-LSTM_ao widths, UNet and then
    UNet-LSTM restoring it, in the reference profile (batches of 5
    subjects, float32, host augmentation) and with the production options
@@ -105,7 +116,9 @@
    names ``head_kernel`` and ``coarse_kernel``; its size and the head's
    device time read from it); the both-directions SA strain
    (``inverse_consistent=False``, 294 pairs) on one subject beside the
-   default scheme's Global Ecc/Err, and card against CPU on a 6-frame cut
+   default scheme's Global Ecc/Err (the call that captures its graphs,
+   one that replays them and the eager route: walls, bitwise compared),
+   and card against CPU on a 6-frame cut
    within the CPU tests' bounds for it; ``cli.verify_checkpoint
    --fingerprint`` on the five bundles and ``--fingerprint_diff`` against
    the committed goldens (without TensorFlow the forward check exits 2, as
@@ -146,7 +159,10 @@
    ingestion phase's, the demo's, the mesh phase's and the
    data-parallel phase's, the B-spline
    kernels' likewise and from the propagation and the both-directions
-   run, with their times at those shapes), and, last,
+   run, with their times at those shapes; launches on the registration
+   path come from graph replays, each adding the launches its capture
+   recorded, and from the first, eager call of each shape), every
+   captured program's capture seconds and memory, and, last,
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --forward_vs <tree>`` instead builds the B-spline
@@ -398,6 +414,60 @@ def device_split(fn, names) -> dict:
                 if k in e.key:
                     out[k] += e.self_device_time_total / 1e3
     return out
+
+
+def route(name):
+    """The registration programs' route for a block: ``"graphs"`` (the
+    default: CUDA graphs captured once per shape and replayed) or
+    ``"eager"`` (the module-private comparison route, op by op)."""
+    import contextlib
+
+    from ukbb_cardiac_tpu_torch.reg import programs
+
+    return (programs._eager_route() if name == "eager"
+            else contextlib.nullcontext())
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler: (device operations, busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kern),
+            sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3)
+
+
+def describe_program(prog) -> str:
+    """A captured program's key in brief: what it computes, the level or
+    (Z, T) it was built for, its first input's shape."""
+    tag = prog.key[0]
+    extra = [str(t) for t in tag[1:] if isinstance(t, (bool, int))]
+    return " ".join([tag[0]] + extra) + f" {tuple(prog.key[2][0])}"
+
+
+def captured_programs(progs) -> str:
+    """One line per captured program: capture seconds, the growth of
+    memory_reserved over its capture, launches a replay adds."""
+    return "\n".join(
+        f"    {describe_program(p)}: capture {p.capture_s:.3f} s, "
+        f"memory_reserved +{p.reserved / 2 ** 20:.1f} MiB, {p.replays} "
+        f"replays, {sum(p.launches.counts.values())} B-spline launches a "
+        f"replay" for p in progs if p.graph is not None)
+
+
+def tables_equal(a, b) -> bool:
+    """Two dicts of DataFrames hold the same values bit for bit (NaN where
+    NaN)."""
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and np.array_equal(
+            a[k].values.astype(float), b[k].values.astype(float),
+            equal_nan=True) for k in a)
 
 
 # --- phantoms: the geometry of tests/phantom.py::sax_phantom ---------------
@@ -1229,9 +1299,12 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
     if wt.shape[0] != N_SUBJECTS or not np.all(np.isfinite(wt[:, -1])):
         raise AssertionError(f"wall thickness rows {wt}")
 
+    from ukbb_cardiac_tpu_torch.reg import programs
+
     cfg = register.RegConfig.cine_2d_motion()
     bf.bspline_field.launches = bf.bspline_field.adjoint_launches = 0
     rows, t_path = [], time.perf_counter()
+    n_programs = len(programs.programs())
     for subject in sorted(os.listdir(data_dir)):
         subj = os.path.join(data_dir, subject)
         motion = os.path.join(subj, "cine_motion")
@@ -1274,6 +1347,15 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
         if not d[0] >= 0.9:
             raise AssertionError(f"subject {subject}: mean LV warp-Dice "
                                  f"{d[0]} < 0.9")
+        if not rows:
+            # the first subject ran each program once eagerly and then
+            # captured it; the others replay
+            first = programs.programs()[n_programs:]
+            print(f"  first subject: {len(first)} programs captured in "
+                  f"{sum(p.capture_s for p in first):.3f} s (host, after "
+                  f"one eager run each), memory_reserved +"
+                  f"{sum(p.reserved for p in first) / 2 ** 20:.1f} MiB "
+                  f"[{card}]:\n" + captured_programs(first))
         rows.append((subject, wall, device_ms))
     launches = {"bspline_field": bf.bspline_field.launches,
                 "bspline_field_adjoint": bf.bspline_field.adjoint_launches}
@@ -1296,47 +1378,95 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
     Xp, Yp = strain.bucket_hw(*frames.shape[2:])
     frames = np.pad(frames, ((0, 0), (0, 0), (0, Xp - frames.shape[2]),
                              (0, Yp - frames.shape[3])))
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     reg = register.make_register_batch((Xp, Yp), cfg, device="cuda")
+    stages = {}
+    for name in ("eager", "graphs"):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
-    def timed_register(targets, sources):
-        out = reg(targets, sources)
-        ev[1].record()
-        return out
+        def timed_register(targets, sources):
+            out = reg(targets, sources)
+            ev[1].record()
+            return out
 
-    torch.cuda.synchronize()
-    ev[0].record()
-    strain.track_multi_slice_fields(frames, cfg, register_batch=timed_register,
-                                    device="cuda")
-    ev[2].record()
-    ev[2].synchronize()
-    span = ev[0].elapsed_time(ev[2])
-    print(f"  one subject's device stages: registration of "
-          f"{frames.shape[0] * frames.shape[1]} pairs at {(Xp, Yp)} "
-          f"{ev[0].elapsed_time(ev[1]):.3f} ms, densify + invert + compose "
-          f"+ blend {ev[1].elapsed_time(ev[2]):.3f} ms [{card}]")
-    # the same again under torch.profiler: kernels launched and the time
-    # the card was busy with them, against the span of the unprofiled run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        strain.track_multi_slice_fields(frames, cfg, register_batch=reg,
-                                        device="cuda")
+        with route(name):
+            torch.cuda.synchronize()
+            ev[0].record()
+            fields = strain.track_multi_slice_fields(
+                frames, cfg, register_batch=timed_register, device="cuda")
+            ev[2].record()
+            ev[2].synchronize()
+            # the same again under torch.profiler: kernels launched and
+            # the time the card was busy, against the unprofiled span
+            n_kern, busy = profiled(lambda: strain.track_multi_slice_fields(
+                frames, cfg, register_batch=reg, device="cuda"))
+        span = ev[0].elapsed_time(ev[2])
+        stages[name] = fields
+        print(f"  one subject's device stages, {name} route: registration "
+              f"of {frames.shape[0] * frames.shape[1]} pairs at {(Xp, Yp)} "
+              f"{ev[0].elapsed_time(ev[1]):.3f} ms, densify + invert + "
+              f"compose + blend {ev[1].elapsed_time(ev[2]):.3f} ms [{card}]")
+        if busy > 0:
+            print(f"  profiled, {name} route: {n_kern} device ops (kernels, "
+                  f"copies), busy {busy:.3f} ms of the {span:.3f} ms span "
+                  f"({100 * (1 - busy / span):.1f} % idle) [{card}]")
+        else:
+            print("  profiled: no device time recorded (device busy share "
+                  "not measured)")
+    same_fields = torch.equal(stages["eager"], stages["graphs"])
+    # the stages after the fields, still eager (the JAX _sample_program
+    # and _warp_dice_program): the contour points' displacements and the
+    # warp-Dice, on points and labels of the subject's sizes
+    fields = stages["graphs"]
+    rng = np.random.RandomState(0)
+    pts = torch.from_numpy(rng.uniform(
+        0, min(Xp, Yp) - 1, (fields.shape[0], 200, 2)).astype(
+            np.float32)).cuda()
+    labels = torch.from_numpy(rng.randint(
+        0, 3, fields.shape[:4]).astype(np.int32)).cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
-    n_kern = sum(e.count for e in kern)
-    if busy > 0:
-        print(f"  profiled: {n_kern} device ops (kernels, copies), busy "
-              f"{busy:.3f} ms of the "
-              f"{span:.3f} ms span ({100 * (1 - busy / span):.1f} % idle) "
-              f"[{card}]")
-    else:
-        print("  profiled: no device time recorded (device busy share not "
-              "measured)")
+        ev[0].record()
+        strain.sample_points(fields, pts)
+        ev[1].record()
+        strain.warp_dice(labels, fields, Xp, Yp)
+        ev[2].record()
+        ev[2].synchronize()
+        ops = [profiled(lambda: strain.sample_points(fields, pts)),
+               profiled(lambda: strain.warp_dice(labels, fields, Xp, Yp))]
+    print(f"  after the fields (eager): point sampling "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms, {ops[0][0]} device ops busy "
+          f"{ops[0][1]:.3f} ms; warp-Dice {ev[1].elapsed_time(ev[2]):.3f} "
+          f"ms, {ops[1][0]} device ops busy {ops[1][1]:.3f} ms [{card}]")
+
+    # the last subject's strain tables and warp-Dice on the eager route
+    # against its graphed run above
+    motion = os.path.join(subj, "cine_motion_eager")
+    os.makedirs(motion)
+    t0 = time.perf_counter()
+    with route("eager"):
+        dice_eager = strain.cine_2d_sa_motion_and_strain_analysis(
+            subj, motion, os.path.join(subj, "strain_sa_eager"), cfg,
+            eval_dice=True, device="cuda")
+    wall_eager = time.perf_counter() - t0
+    tab_eager = strain_tables(os.path.join(subj, "strain_sa_eager"))
+    bitwise = (same_fields and tables_equal(tab_eager, tab) and
+               np.array_equal(dice_eager.values, dice.values))
+    seg_diff = max(np.nanmax(np.abs(tab_eager[k].values - tab[k].values))
+                   for k in tab)
+    dice_diff = float(np.abs(dice_eager.values - dice.values).max())
+    print(f"  subject {subject}, graphs against the eager route: strain "
+          f"tables, warp-Dice and fields {'bitwise equal' if bitwise else 'NOT bitwise equal'}"
+          f" (largest differences {seg_diff:.6g} pp, warp-Dice "
+          f"{dice_diff:.6g}); eager strain wall {wall_eager:.4f} s against "
+          f"the graphed {rows[-1][1]:.4f} s [{card}]")
+    if not bitwise:
+        print("  not bitwise: a replay runs the eager route's kernels in its "
+              "order, so a difference comes from a kernel whose result "
+              "depends on its launch; held to the CPU bounds")
+        if not (seg_diff <= STRAIN_SEGMENT_ATOL and dice_diff <= DICE_ATOL):
+            raise AssertionError("graphed and eager strain disagree beyond "
+                                 "the CPU bounds")
 
     subj = os.path.join(data_dir, rows[0][0])
 
@@ -1404,7 +1534,8 @@ def cohort_phase(card, work):
     deploys, atrial volumes and LA strain) over N_SUBJECTS full-size
     subjects as a user runs it: with 1 worker (the default), then with 3
     workers on the shared default stream and on a stream per worker,
-    in the order shared, own, own, shared; then the LA outputs held
+    in the order shared, own, own, shared, then with 1 worker again
+    (every shape's graphs captured by then); then the LA outputs held
     against the truth and against the port's CPU path.  Returns the
     kernels' launches in the 1-worker run."""
     import pandas as pd
@@ -1434,10 +1565,12 @@ def cohort_phase(card, work):
             "--model_path_ao", AO_BUNDLE,
             "--pressure_csv", os.path.join(work, "bp.csv"),
             "--device", "cuda", "--force"]
+    # the last run repeats the first once every shape's graphs are
+    # captured (run 1 captures the registrations of each new crop shape)
     runs = [(1, "default stream"), (3, "default stream"),
             (3, "stream per worker"), (3, "stream per worker"),
-            (3, "default stream")]
-    first = None
+            (3, "default stream"), (1, "default stream")]
+    first = first_tables = None
     for i, (workers, streams) in enumerate(runs):
         tag = f"run {i + 1}, workers {workers}, {streams}"
         out = os.path.join(work, f"cohort_csv_{i}")
@@ -1490,12 +1623,25 @@ def cohort_phase(card, work):
             raise AssertionError(f"cohort {tag}: head launches by classes "
                                  f"{launches['by_class']}: want 2, 3, 4 "
                                  f"and 6")
+        tables = {}
         for name, n_col in COHORT_TABLES.items():
-            tab = pd.read_csv(os.path.join(out, name), index_col=0)
+            tab = tables[name] = pd.read_csv(os.path.join(out, name),
+                                             index_col=0).sort_index()
             if tab.shape != (N_SUBJECTS, n_col) or not np.isfinite(
                     tab.values.astype(float)).all():
                 raise AssertionError(f"{name}: shape {tab.shape}, want "
                                      f"{(N_SUBJECTS, n_col)}, or not finite")
+        first_tables = first_tables or tables
+        if i:
+            # every worker replays the same programs: the rows are run 1's
+            same = tables_equal(tables, first_tables)
+            print(f"  {tag}: rows {'equal to' if same else 'DIFFER from'} "
+                  f"run 1's (1 worker)" + ("" if same else ": " + ", ".join(
+                      f"{k} {np.abs(t.values - first_tables[k].values).max():.6g}"
+                      for k, t in tables.items())))
+            if not same:
+                raise AssertionError(f"cohort {tag}: rows differ from the "
+                                     f"1-worker run's")
     launches = first
 
     # the deployed LA labels against the phantom truth
@@ -1557,32 +1703,54 @@ def cohort_phase(card, work):
     if not np.allclose(card_row, cpu_row, rtol=ATRIAL_RTOL, atol=0):
         raise AssertionError(f"atrial rows differ: {card_row} vs {cpu_row}")
 
-    # one subject's LA strain alone on the card: launches, wall, device span
+    # one subject's LA strain alone on the card: launches, wall, device
+    # span, replaying the graphs the cohort captured and on the eager route
     cfg = RegConfig()
-    motion = os.path.join(subj, "la_motion_alone")
-    os.makedirs(motion)
-    before = (bf.bspline_field.launches, bf.bspline_field.adjoint_launches)
-    t0 = time.perf_counter()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    ctx = strain_la.start_la_motion_dispatch(subj, motion, cfg,
-                                             eval_dice=True, device="cuda")
-    ev[1].record()
-    ev[1].synchronize()
-    dice_la = strain_la.finish_la_motion(
-        ctx, os.path.join(subj, "alone"), eval_dice=True).values.mean(axis=0)
-    n = (bf.bspline_field.launches - before[0],
-         bf.bspline_field.adjoint_launches - before[1])
-    ell = pd.read_csv(os.path.join(subj, "alone_longit.csv"), index_col=0)
-    print(f"  LA strain of {os.path.basename(subj)} alone: wall "
-          f"{time.perf_counter() - t0:.4f} s, device span "
-          f"{ev[0].elapsed_time(ev[1]):.4f} ms [{card}]; {T} pairs, crop "
-          f"{(ctx['X'], ctx['Y'])} -> {bucket_hw(ctx['X'], ctx['Y'], 64)}; "
-          f"global Ell min "
-          f"{ell.loc['Global'].min():.4f} %; warp-Dice LV {dice_la[0]:.4f}; "
-          f"bspline_field launches {n[0]}, adjoint {n[1]}")
-    if min(n) <= 0:
-        raise AssertionError("the LA strain launched no B-spline kernel")
+    alone = {}
+    for name in ("graphs", "eager"):
+        motion = os.path.join(subj, f"la_motion_alone_{name}")
+        os.makedirs(motion)
+        before = (bf.bspline_field.launches,
+                  bf.bspline_field.adjoint_launches)
+        t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with route(name):
+            ev[0].record()
+            ctx = strain_la.start_la_motion_dispatch(
+                subj, motion, cfg, eval_dice=True, device="cuda")
+            ev[1].record()
+            ev[1].synchronize()
+        dice_df = strain_la.finish_la_motion(
+            ctx, os.path.join(subj, f"alone_{name}"), eval_dice=True)
+        dice_la = dice_df.values.mean(axis=0)
+        n = (bf.bspline_field.launches - before[0],
+             bf.bspline_field.adjoint_launches - before[1])
+        ell = pd.read_csv(os.path.join(subj, f"alone_{name}_longit.csv"),
+                          index_col=0)
+        alone[name] = ({"longit": ell}, dice_df.values, n)
+        print(f"  LA strain of {os.path.basename(subj)} alone, {name} "
+              f"route: wall {time.perf_counter() - t0:.4f} s, device span "
+              f"{ev[0].elapsed_time(ev[1]):.4f} ms [{card}]; {T} pairs, "
+              f"crop {(ctx['X'], ctx['Y'])} -> "
+              f"{bucket_hw(ctx['X'], ctx['Y'], 64)}; global Ell min "
+              f"{ell.loc['Global'].min():.4f} %; warp-Dice LV "
+              f"{dice_la[0]:.4f}; bspline_field launches {n[0]}, adjoint "
+              f"{n[1]}")
+        if min(n) <= 0:
+            raise AssertionError("the LA strain launched no B-spline kernel")
+    bitwise = (tables_equal(alone["graphs"][0], alone["eager"][0])
+               and np.array_equal(alone["graphs"][1], alone["eager"][1]))
+    diff = float(np.nanmax(np.abs(alone["graphs"][0]["longit"].values
+                                  - alone["eager"][0]["longit"].values)))
+    print(f"  LA strain, graphs against the eager route: "
+          f"{'bitwise equal' if bitwise else 'NOT bitwise equal'} (largest "
+          f"difference {diff:.6g} pp); launches "
+          f"{'equal' if alone['graphs'][2] == alone['eager'][2] else 'DIFFER'}")
+    if alone["graphs"][2] != alone["eager"][2]:
+        raise AssertionError("the graphed LA strain counted other launches")
+    if not bitwise and not diff <= LA_STRAIN_SEGMENT_ATOL:
+        raise AssertionError("graphed and eager LA strain disagree beyond "
+                             "the CPU bounds")
     if bucket_hw(ctx["X"], ctx["Y"], 64) != (LA_BUCKET, LA_BUCKET):
         raise AssertionError(f"the LA crop's bucket is not the "
                              f"{LA_BUCKET}^2 the B-spline phase checked")
@@ -2154,31 +2322,38 @@ def propagation_phase(card, work, bf):
     print(f"  B-spline launches: {launches} ({per_subject} per subject); "
           f"max allocated {peak:.3f} GiB (the NMI Parzen weights of {B} "
           f"pairs)")
-    # one subject's registration again under torch.profiler: device
-    # operations and the time the card was busy against the span
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    # one subject's registration again, replaying the graphs the CLI
+    # captured and on the eager route: span, device operations and the
+    # time the card was busy under torch.profiler, output bit for bit
     frames = np.random.RandomState(0).rand(*crop_shape, 1, B + 2).astype(
         np.float32)
     pairs = [(t - 1, t) for t in range(1, B + 1)]
     cfg = prop.RegConfig.aortic_motion()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as pr:
-        ev[0].record()
-        prop.register_pairs(frames, pairs, cfg, "cuda")
-        ev[1].record()
-        torch.cuda.synchronize()
-    kern = [e for e in pr.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    n_ops = sum(e.count for e in kern)
-    span = ev[0].elapsed_time(ev[1])
-    print(f"  one registration of {B} pairs at {crop_shape} under "
-          f"torch.profiler: {n_ops} device operations ({n_ops / 100:.1f} "
-          f"per Adam step), busy {busy:.3f} ms of a {span:.3f} ms span "
-          f"({100 * (1 - busy / span):.1f} % idle) [{card}]")
+    disps = {}
+    for name in ("graphs", "eager"):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with route(name):
+            torch.cuda.synchronize()
+            ev[0].record()
+            disps[name] = prop.register_pairs(frames, pairs, cfg, "cuda")
+            ev[1].record()
+            torch.cuda.synchronize()
+            n_ops, busy = profiled(lambda: prop.register_pairs(
+                frames, pairs, cfg, "cuda"))
+        span = ev[0].elapsed_time(ev[1])
+        print(f"  one registration of {B} pairs at {crop_shape}, {name} "
+              f"route: span {span:.3f} ms; under torch.profiler {n_ops} "
+              f"device operations ({n_ops / 100:.1f} per Adam step), busy "
+              f"{busy:.3f} ms ({100 * (1 - busy / span):.1f} % idle) "
+              f"[{card}]")
+    same = np.array_equal(disps["graphs"], disps["eager"])
+    print(f"  propagation fields, graphs against the eager route: "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'} (largest "
+          f"difference "
+          f"{np.abs(disps['graphs'] - disps['eager']).max():.6g} px)")
+    if not same:
+        raise AssertionError("the graphed propagation's fields differ from "
+                             "the eager route's")
     if (launches["bspline_field"] != AO_TRAIN_SUBJECTS * per_subject[0]
             or launches["bspline_field_adjoint"]
             != AO_TRAIN_SUBJECTS * per_subject[1]):
@@ -2876,41 +3051,69 @@ def both_directions_phase(card, work, strain, register):
     cfg = register.RegConfig.cine_2d_motion()
     subject = sorted(os.listdir(os.path.join(work, "data")))[0]
     subj = os.path.join(work, "data", subject)
-    motion = os.path.join(subj, "motion_both")
-    os.makedirs(motion)
-    _reset_launches()
-    ev = (torch.cuda.Event(enable_timing=True),
-          torch.cuda.Event(enable_timing=True))
-    t0 = time.perf_counter()
-    ev[0].record()
-    ctx = strain.start_sa_motion_dispatch(subj, motion, cfg, eval_dice=True,
-                                          device="cuda",
-                                          inverse_consistent=False)
-    ev[1].record()
-    dice_df = strain.finish_sa_motion(ctx, os.path.join(subj, "strain_both"))
-    wall = time.perf_counter() - t0
-    launches = _launches()
-    del launches["fused_head"]
+    # the first call captures the programs of B = 294, the second replays
+    # them; then the eager route
+    runs = {}
+    for name, how in (("capture", "graphs"), ("replay", "graphs"),
+                      ("eager", "eager")):
+        motion = os.path.join(subj, f"motion_both_{name}")
+        os.makedirs(motion)
+        _reset_launches()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        with route(how):
+            ev[0].record()
+            ctx = strain.start_sa_motion_dispatch(
+                subj, motion, cfg, eval_dice=True, device="cuda",
+                inverse_consistent=False)
+            ev[1].record()
+        stem = "strain_both" if name == "replay" else f"strain_both_{name}"
+        dice_df = strain.finish_sa_motion(ctx, os.path.join(subj, stem))
+        wall = time.perf_counter() - t0
+        n = _launches()
+        del n["fused_head"]
+        runs[name] = (strain_tables(os.path.join(subj, stem)),
+                      dice_df.values, n, wall)
+        print(f"  both-directions SA strain, {name} ({how}): wall "
+              f"{wall:.4f} s, device span {ev[0].elapsed_time(ev[1]):.4f} "
+              f"ms [{card}]; launches {n}")
+    launches = runs["replay"][2]
     pairs = len(ctx["selected"]) * 2 * (ctx["T"] - 1)
     tab = {k: strain_tables(os.path.join(subj, k))
            for k in ("strain_both", "strain_sa")}
     ecc = {k: t["circum"].loc["Global"].min() for k, t in tab.items()}
     err = {k: t["radial"].loc["Global"].max() for k, t in tab.items()}
-    d = dice_df.values.mean(axis=0)
-    print(f"  both-directions SA strain, subject {subject}: {pairs} pairs, "
-          f"strain wall {wall:.4f} s, device span "
-          f"{ev[0].elapsed_time(ev[1]):.4f} ms [{card}]; launches "
-          f"{launches}; global Ecc {ecc['strain_both']:.4f} % (default "
+    d = runs["replay"][1].mean(axis=0)
+    bitwise = all(tables_equal(runs[k][0], runs["eager"][0])
+                  and np.array_equal(runs[k][1], runs["eager"][1])
+                  for k in ("capture", "replay"))
+    print(f"  both-directions SA strain, subject {subject}: {pairs} pairs; "
+          f"global Ecc {ecc['strain_both']:.4f} % (default "
           f"scheme {ecc['strain_sa']:.4f}), Err {err['strain_both']:.4f} % "
           f"(default {err['strain_sa']:.4f}); warp-Dice LV {d[0]:.4f} Myo "
-          f"{d[1]:.4f}")
+          f"{d[1]:.4f}; capture and replay against the eager route: "
+          f"{'bitwise equal' if bitwise else 'NOT bitwise equal'}")
     if pairs != N_PAIRS_BOTH or not all(n > 0 for n in launches.values()):
         raise AssertionError(f"both directions: {pairs} pairs, launches "
                              f"{launches}")
+    if not all(runs[k][2] == launches for k in runs):
+        raise AssertionError("both directions: the routes counted other "
+                             "launches")
     if not (np.isfinite(ecc["strain_both"]) and np.isfinite(err[
             "strain_both"]) and d[0] >= 0.9):
         raise AssertionError("both directions: strain not finite or "
                              f"warp-Dice {d}")
+    if not bitwise:
+        diff = max(np.nanmax(np.abs(runs[k][0][c].values
+                                    - runs["eager"][0][c].values))
+                   for k in ("capture", "replay") for c in ("radial",
+                                                            "circum"))
+        print(f"  not bitwise: largest difference {diff:.6g} pp, held to "
+              f"the both-directions bound {BOTH_SEGMENT_ATOL}")
+        if not diff <= BOTH_SEGMENT_ATOL:
+            raise AssertionError("graphed and eager both-directions strain "
+                                 "disagree beyond the CPU bound")
     red = os.path.join(work, "reduced", subject)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -3159,7 +3362,8 @@ def mesh_phase(card, work, truth):
     if sorted(result.fleet.succeeded) != sorted(truth) or \
             result.fleet.failed:
         raise AssertionError(f"sharded cohort: {result.fleet.failed}")
-    with open(os.path.join(work, "cohort_0.json")) as f:
+    # phase 5's last run: 1 worker, every shape's graphs captured
+    with open(os.path.join(work, "cohort_5.json")) as f:
         flat_stages = json.load(f)["stage_seconds"]
     strain_s = {k: float(np.median([st["strain"] for st in v.values()]))
                 for k, v in (("mesh", result.stage_seconds),
@@ -3174,8 +3378,9 @@ def mesh_phase(card, work, truth):
                                               "Err_Global (%)")]
     seg_diff, glob_diff = float(np.nanmax(diff)), float(diff[:, glob].max())
     print(f"  sharded SA strain, {N_SUBJECTS} subjects, 1 worker: median "
-          f"strain stage {strain_s['mesh']:.4f} s against phase 5's "
-          f"unsharded {strain_s['flat']:.4f} s [{card}]; per subject "
+          f"strain stage {strain_s['mesh']:.4f} s (its first subject "
+          f"captures the shards' graphs) against phase 5's last "
+          f"unsharded run's {strain_s['flat']:.4f} s [{card}]; per subject "
           f"bspline_field launches {n[0] / N_SUBJECTS:g}, adjoint "
           f"{n[1] / N_SUBJECTS:g}; strain rows against phase 5's 1-worker "
           f"rows: max difference {seg_diff:.6g} pp, Global {glob_diff:.6g} "
@@ -3433,7 +3638,7 @@ def main() -> int:
     from ukbb_cardiac_tpu_torch.phenotype import strain, ventricle
     from ukbb_cardiac_tpu_torch.reg import bspline as tb
     from ukbb_cardiac_tpu_torch.reg import bspline_field as bf
-    from ukbb_cardiac_tpu_torch.reg import register
+    from ukbb_cardiac_tpu_torch.reg import programs, register
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -3484,6 +3689,10 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[14/14] total {time.perf_counter() - t_start:.1f} s")
+    held = [p for p in programs.programs() if p.graph is not None]
+    print(f"  captured programs held: {len(held)}, memory_reserved +"
+          f"{sum(p.reserved for p in held) / 2 ** 30:.3f} GiB in all "
+          f"[{card}]:\n" + captured_programs(held))
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -3515,6 +3724,9 @@ def main() -> int:
             "launches": cohort_launches[name],
             **{k: t[k] for k in keys},
             "path": "cohort, 1 worker",
+            "launched_by": "replays of the registration's CUDA graphs "
+                           "(each adds the launches its capture recorded) "
+                           "and the first, eager call of each shape",
             "ingestion": {"launches": ingest_launches[name]},
             "propagation": {"launches": prop_launches[name],
                             "shape": spline["propagation"]["shape"],

@@ -10,6 +10,9 @@ machine that has no JAX (``tests/conftest.py`` imports JAX, hence
 
 import functools
 import os
+import subprocess
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -22,7 +25,9 @@ from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  unpack_bits)
 from ukbb_cardiac_tpu_torch.models import fcn as tfcn
 from ukbb_cardiac_tpu_torch.models import fused_head as tfh
+from ukbb_cardiac_tpu_torch.phenotype import strain as tstrain
 from ukbb_cardiac_tpu_torch.reg import bspline as tb
+from ukbb_cardiac_tpu_torch.reg import programs
 from ukbb_cardiac_tpu_torch.reg import register as tr
 from ukbb_cardiac_tpu_torch.reg.bspline_field import bspline_field
 
@@ -845,3 +850,161 @@ def test_two_gloo_ranks_on_one_card_match_the_single_card_step(card):
         1e-5 * float(want["losses"][0])
     for k, v in want["aux"].items():
         assert abs(float(got["aux"][k]) - float(v)) <= 1e-6, k
+
+
+# --- the registration's CUDA graphs ----------------------------------------
+
+# (cfg, pairs, image shape, B-spline forward and adjoint launches a call):
+# the SA strain registration (3 levels x 30 Adam steps, the finished levels
+# synthesised at levels 1 and 2) and the aortic propagation's (1 level x
+# 100 NMI steps) at their strain and propagation shapes
+GRAPH_CASES = {
+    "sa": (tr.RegConfig.cine_2d_motion(), 150, (96, 96), (93, 90)),
+    "propagation": (tr.RegConfig.aortic_motion(), 98, (100, 57),
+                    (100, 100)),
+}
+
+
+def _moving_blobs(B, shape, seed):
+    """B (target, source) pairs of a Gaussian blob moved by up to 2 px,
+    with a little noise, float32."""
+    X, Y = shape
+    rng = np.random.RandomState(seed)
+    gx, gy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+
+    def blobs(shifts):
+        return np.stack([np.exp(-((gx - X / 2 - sx) ** 2
+                                  + (gy - Y / 2 - sy) ** 2) / (X * Y / 20))
+                         for sx, sy in shifts])
+
+    shifts = rng.uniform(-2, 2, size=(2, B, 2))
+    return tuple((blobs(s) + 0.01 * rng.randn(B, X, Y)).astype(np.float32)
+                 for s in shifts)
+
+
+def _counted(call):
+    """``call()`` and the B-spline forward and adjoint launches it
+    counted."""
+    before = (bspline_field.launches, bspline_field.adjoint_launches)
+    out = call()
+    torch.cuda.synchronize()
+    return out, (bspline_field.launches - before[0],
+                 bspline_field.adjoint_launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_registration_is_bitwise_the_eager_route(card, case):
+    """The registration replaying its graphs (one for the inputs, one per
+    level) against the eager route on the same card, for the inputs it
+    was captured with and for others: lattices bitwise equal, and the
+    capturing call's equal to a replay's; each call counts the launches
+    that ran, as the eager route does."""
+    cfg, B, shape, want_launches = GRAPH_CASES[case]
+    programs.clear()
+    reg = tr.make_register_batch(shape, cfg, device=card)
+    assert reg is tr.make_register_batch(shape, cfg, device=card)
+    for seed in (7, 8):
+        tgt, src = _moving_blobs(B, shape, seed)
+        with programs._eager_route():
+            eager, n_eager = _counted(lambda: reg(tgt, src))
+        graphed, n_graphed = _counted(lambda: reg(tgt, src))
+        replayed, n_replayed = _counted(lambda: reg(tgt, src))
+        assert n_eager == n_graphed == n_replayed == want_launches
+        for e, g, r in zip(eager, graphed, replayed):
+            assert torch.equal(e, g) and torch.equal(e, r)
+        assert float(eager[-1].abs().max()) > 0.1   # the lattices moved
+    progs = programs.programs()
+    assert len(progs) == 1 + cfg.levels
+    assert all(p.graph is not None and p.replays == 3 for p in progs)
+
+
+@pytest.mark.cuda
+def test_graphed_fields_are_bitwise_the_eager_route(card):
+    """The SA field program (densify + invert + both compositions + blend,
+    Z = 3, T = 50) and ``combine_fields`` replayed against the eager
+    route; the densify's 3 forward launches counted per call."""
+    cfg = tr.RegConfig.cine_2d_motion()
+    Z, T, X = 3, 50, 96
+    g = torch.Generator().manual_seed(3)
+    controls = [(0.5 * torch.randn((Z * T,) + tb.lattice_shape(
+        (X // f, X // f), cfg.spacing) + (2,), generator=g)).to(card)
+        for f in (4, 2, 1)]
+    controls = [c * f for c, f in zip(controls, (4, 2, 1))]
+    fields = tr.total_field(controls, (X, X), cfg)
+    programs.clear()
+    with torch.no_grad():
+        with programs._eager_route():
+            (want, n_eager) = _counted(lambda: tstrain._field_program(
+                controls, (X, X), Z, T, cfg))
+            want_combined = tstrain.combine_fields(fields, Z, T)
+        for _ in range(2):
+            got, n = _counted(lambda: tstrain._field_program(
+                controls, (X, X), Z, T, cfg))
+            assert torch.equal(got, want) and n == n_eager == (3, 0)
+            assert torch.equal(tstrain.combine_fields(fields, Z, T),
+                               want_combined)
+    assert torch.equal(want, want_combined)
+    assert all(p.graph is not None for p in programs.programs())
+
+
+@pytest.mark.cuda
+def test_graphed_registration_under_threads(card):
+    """Three threads register different pairs through one cached factory
+    at once (the cohort's workers sharing the card, on the default stream
+    and on streams of their own): each gets its eager route's lattices
+    bitwise."""
+    cfg, B, shape, _ = GRAPH_CASES["sa"]
+    inputs = [_moving_blobs(B, shape, seed) for seed in (11, 12, 13)]
+    reg = tr.make_register_batch(shape, cfg, device=card)
+    with programs._eager_route():
+        want = [reg(*pair) for pair in inputs]
+    got = [None] * 3
+
+    def worker(i, own_stream):
+        with torch.cuda.stream(torch.cuda.Stream() if own_stream
+                               else torch.cuda.current_stream()):
+            for _ in range(2):
+                got[i] = reg(*inputs[i])
+            torch.cuda.current_stream().synchronize()
+
+    for own_stream in (False, True):
+        threads = [threading.Thread(target=worker, args=(i, own_stream))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        for w, gl in zip(want, got):
+            assert all(torch.equal(a, b) for a, b in zip(w, gl))
+
+
+_FAILED_CAPTURE = """
+import torch
+from ukbb_cardiac_tpu_torch.reg import programs
+
+def syncs(x):
+    # .item() waits for the card: refused inside a capture
+    return (x * float(x.sum().item()),)
+
+x = torch.ones(8, device="cuda")
+try:
+    programs.run(("syncs",), syncs, x)
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+else:
+    print("no error")
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card):
+    """A function that synchronises with the host cannot be captured: the
+    program raises (in a process of its own, whose CUDA context the
+    invalidated capture leaves behind)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:"), out.stdout

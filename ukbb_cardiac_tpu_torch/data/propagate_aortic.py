@@ -13,7 +13,8 @@ resample, the label chaining through ``scipy.ndimage.map_coordinates``
 at orders 0 and 1) are copies of the JAX package's.  On the device: all
 (source, target) pairs registered in ONE ``make_register_batch`` call
 (the B-spline kernels in every Adam step), then densified by
-``total_field``.  Runs on the card unless ``device="cpu"``.
+``total_field``, each a CUDA graph captured once per shape
+(``reg/programs.py``).  Runs on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.ops.sequence import (auto_crop_image,
                                                  resample_to_target)
+from ukbb_cardiac_tpu_torch.reg import programs
 from ukbb_cardiac_tpu_torch.reg.register import (RegConfig,
                                                  make_register_batch,
                                                  total_field)
@@ -117,7 +119,17 @@ def register_pairs(crop_img: np.ndarray, pairs, cfg: RegConfig,
     controls = register_batch(torch.from_numpy(targets).to(dev),
                               torch.from_numpy(sources).to(dev))
     with torch.no_grad():
-        return total_field(controls, (X, Y), cfg).cpu().numpy()
+        return _dense_program(controls, (X, Y), cfg).cpu().numpy()
+
+
+def _dense_program(controls, image_shape, cfg: RegConfig) -> torch.Tensor:
+    """:func:`total_field` of a batch of control stacks, one program per
+    (device, pairs, X, Y, cfg) on the card (``reg/programs.py``; the JAX
+    ``_dense_program``)."""
+    image_shape = tuple(image_shape)
+    return programs.run(
+        ("dense-fields", image_shape, cfg),
+        lambda *cs: (total_field(cs, image_shape, cfg),), *controls)[0]
 
 
 def propagate_subject(data_dir: str, cfg: RegConfig = None,

@@ -10,7 +10,10 @@ an old build.  Nothing here runs at import time.
 The cohort driver reaches first use from several threads at once: a lock
 per kernel makes one of them build while the others wait, every compile
 writes a temporary file of its own, and :func:`count_launches` updates
-the wrappers' launch counters under a lock.
+the wrappers' launch counters under a lock.  A launch sent into a
+CUDA-graph capture does not run then: the capture's
+:class:`LaunchRecord` keeps it, and each replay of the graph adds the
+record to the counters (``reg/programs.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +71,53 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCKS = {name: threading.RLock() for name in SIGNATURES}
 _TMP_SERIAL = itertools.count()
 _COUNT_LOCK = threading.Lock()
+# the record of the CUDA-graph capture underway (``reg/programs.py``
+# captures one graph at a time in the process)
+_RECORD: "LaunchRecord | None" = None
+
+
+class LaunchRecord:
+    """The kernel launches that a CUDA-graph capture recorded, by wrapper,
+    counter and class.  A launch sent into a capture runs only when the
+    graph replays, so it is recorded here instead of counted, and
+    :meth:`replayed` adds the record to the wrappers' counters at each
+    replay."""
+
+    def __init__(self):
+        self.counts: Dict[tuple, int] = {}
+
+    def add(self, fn, n: int, attr: str = "launches",
+            n_class: int | None = None) -> None:
+        key = (fn, attr, n_class)
+        self.counts[key] = self.counts.get(key, 0) + n
+
+    def replayed(self) -> None:
+        for (fn, attr, n_class), n in self.counts.items():
+            count_launches(fn, n, attr, n_class)
+
+
+@contextlib.contextmanager
+def recording(record: LaunchRecord):
+    """Record into ``record`` the launches sent into the capture that
+    the caller runs inside this block."""
+    global _RECORD
+    with _COUNT_LOCK:
+        _RECORD = record
+    try:
+        yield record
+    finally:
+        with _COUNT_LOCK:
+            _RECORD = None
+
+
+def _capturing() -> bool:
+    """Whether the calling thread's current CUDA stream is being captured
+    into a graph (a captured backward runs on the autograd engine's
+    device thread, with the capture stream as its current stream)."""
+    import torch
+
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def count_launches(fn, n: int, attr: str = "launches",
@@ -75,8 +125,15 @@ def count_launches(fn, n: int, attr: str = "launches",
     """Add ``n`` to the wrapper ``fn``'s counter ``attr`` (and, with
     ``n_class``, to ``fn.launches_by_class[n_class]``) under a lock:
     ``+=`` on an attribute is a read-modify-write that loses counts when
-    worker threads launch together."""
+    worker threads launch together.  A launch into a CUDA-graph capture
+    goes to the capture's :class:`LaunchRecord` instead (none outside
+    ``reg/programs.py``: then it is not counted)."""
+    capturing = _capturing()
     with _COUNT_LOCK:
+        if capturing:
+            if _RECORD is not None:
+                _RECORD.add(fn, n, attr, n_class)
+            return
         setattr(fn, attr, getattr(fn, attr) + n)
         if n_class is not None:
             fn.launches_by_class[n_class] = (

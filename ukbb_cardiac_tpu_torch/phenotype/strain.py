@@ -4,8 +4,9 @@ Counterpart of ``ukbb_cardiac_tpu/phenotype/strain.py`` (reference:
 ``common/cardiac_utils.py:755-987``).  The whole (slice, frame-pair)
 population of a subject is ONE batched registration on the card
 (``reg.make_register_batch``); densify, inversion, composition and
-blending of the motion fields run there too, and only the contour-point
-displacements and the warp-Dice rows come back to the host:
+blending of the motion fields run there too, as one CUDA graph per
+shape (``reg/programs.py``), and only the contour-point displacements
+and the warp-Dice rows come back to the host:
 
   pairs (3 slices x T, or 3 x 2(T-1) in both directions)
   →  batched FFD register
@@ -36,6 +37,7 @@ from ukbb_cardiac_tpu_torch.io.vtkio import (PolyData, append_polydata,
 from ukbb_cardiac_tpu_torch.ops.crop import foreground_bbox
 from ukbb_cardiac_tpu_torch.phenotype.myo_contour import \
     extract_myocardial_contour
+from ukbb_cardiac_tpu_torch.reg import programs
 from ukbb_cardiac_tpu_torch.reg.register import (RegConfig, compose_chain,
                                                  invert_field_batch,
                                                  make_register_batch,
@@ -109,7 +111,33 @@ def combine_fields(fields: torch.Tensor, Z: int, T: int,
     the backward chain's pairs: with ``inverse_consistent`` the wrap pair
     0 → T-1 alone ((Z * T, X, Y, 2); the pairs (fr+1 → fr) are the
     forward pairs inverted), else the T-1 registered pairs
-    ((fr+1) % T → fr for fr = T-1 .. 1; (Z * 2(T-1), X, Y, 2))."""
+    ((fr+1) % T → fr for fr = T-1 .. 1; (Z * 2(T-1), X, Y, 2)).  On the
+    card a CUDA graph per (device, Z, T, X, Y, inverse_consistent),
+    captured at its first call and replayed (``reg/programs.py``)."""
+    return programs.run(
+        ("combine-fields", Z, T, inverse_consistent),
+        lambda f: (_combine(f, Z, T, inverse_consistent),), fields)[0]
+
+
+def _field_program(controls, image_shape, Z: int, T: int, cfg: RegConfig,
+                   inverse_consistent: bool = True) -> torch.Tensor:
+    """The registration's per-level lattices → ED→fr fields (Z, T, X, Y,
+    2): densify (:func:`total_field`) + :func:`combine_fields` in one
+    program per (device, Z, T, X, Y, cfg, inverse_consistent), the JAX
+    ``_field_programs`` pair."""
+    image_shape = tuple(image_shape)
+
+    def program(*cs):
+        return (_combine(total_field(cs, image_shape, cfg), Z, T,
+                         inverse_consistent),)
+
+    return programs.run(("motion-fields", Z, T, image_shape, cfg,
+                         inverse_consistent), program, *controls)[0]
+
+
+def _combine(fields: torch.Tensor, Z: int, T: int,
+             inverse_consistent: bool) -> torch.Tensor:
+    """:func:`combine_fields` as eager ops."""
     X, Y = fields.shape[1:3]
     per = T if inverse_consistent else 2 * (T - 1)
     per_slice = fields.reshape(Z, per, X, Y, 2)
@@ -240,8 +268,8 @@ def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
                               torch.from_numpy(sources).to(dev))
     controls = tuple(c.to(dev) for c in controls)
     with torch.no_grad():
-        fields = total_field(controls, (X, Y), cfg)
-        return combine_fields(fields, Z, T, inverse_consistent)
+        return _field_program(controls, (X, Y), Z, T, cfg,
+                              inverse_consistent)
 
 
 def track_slice_fields(frames: np.ndarray, cfg: RegConfig,

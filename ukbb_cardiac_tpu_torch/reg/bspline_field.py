@@ -19,7 +19,8 @@ one ``torch.autograd.Function`` covers both directions for a batch:
 Nothing falls back from CUDA to the plain version.  Both kernels are bound
 by bytes (the field written or read once); see the source for the count.
 ``bspline_field.launches`` and ``bspline_field.adjoint_launches`` count
-kernel launches.
+kernel launches (inside a CUDA graph, at each replay:
+``kernels.count_launches``).
 """
 
 from __future__ import annotations

@@ -8,9 +8,14 @@ Gaussian image pyramid, for a whole batch of (target, source) pairs at
 once.  Energy as ``par/ffd_cine_2d_motion.cfg``: SSD + 1e-1 bending energy,
 3 levels, finest control spacing 10 px (NMI for the aortic config).
 
-PyTorch runs eagerly: each Adam step is a handful of batched ops, and the
-B-spline synthesis inside it (and its adjoint in the backward pass) is
-the CUDA kernel of ``reg/bspline_field.py`` on the card.  The JAX
+Each Adam step is a handful of batched ops, and the B-spline synthesis
+inside it (and its adjoint in the backward pass) is the CUDA kernel of
+``reg/bspline_field.py`` on the card.  As the JAX package runs a
+registration as a few cached jitted programs, the card runs it as CUDA
+graphs captured once per shape (``reg/programs.py``): one for the
+inputs' mask, normalisation and padding, and one per pyramid level
+holding its blur and stride, the finished levels' synthesis and all of
+its Adam steps.  The JAX
 package's ``'mxu'`` tent-basis warp is a TPU reformulation of the same
 bilinear gather: ``RegConfig.warp_backend`` and ``warp_precision`` are
 accepted (and the backend name checked) so that a JAX config carries over,
@@ -19,6 +24,7 @@ and every backend computes the gather.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -29,7 +35,7 @@ from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.ops.resample import sample_2d
 from ukbb_cardiac_tpu_torch.parallel.mesh import (cycle_to_multiple,
                                                   map_shards, split_leading)
-from ukbb_cardiac_tpu_torch.reg import bspline, losses
+from ukbb_cardiac_tpu_torch.reg import bspline, losses, programs
 
 WARP_BACKENDS = ("auto", "mxu", "gather")
 
@@ -256,6 +262,25 @@ def average_fields(fields: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return torch.sum(fields * w, dim=0)
 
 
+_CORRECTIONS = {}
+
+
+def _corrections(steps: int, device) -> torch.Tensor:
+    """Adam's bias corrections 1 - decay**count, (steps, 2) float32 for
+    count = 1..steps, computed on the host and uploaded once per device:
+    a copy per step would wait for the card (and is an error inside a
+    graph capture), and a CPU scalar divisor would turn the division into
+    a reciprocal multiply on the card."""
+    key = (steps, str(device))
+    if key not in _CORRECTIONS:
+        _CORRECTIONS[key] = torch.stack([torch.stack([
+            1 - torch.tensor(d, dtype=torch.float32)
+            ** torch.tensor(k, dtype=torch.int32)
+            for d in (_Adam.b1, _Adam.b2)])
+            for k in range(1, steps + 1)]).to(device)
+    return _CORRECTIONS[key]
+
+
 class _Adam:
     """``optax.adam(lr)`` written out: b1 0.9, b2 0.999, eps 1e-8,
     eps_root 0, bias-corrected, in optax's order of operations."""
@@ -267,14 +292,7 @@ class _Adam:
         self.mu = torch.zeros_like(params)
         self.nu = torch.zeros_like(params)
         self.count = 0
-        # 1 - decay**count in float32 for count = 1..steps, computed on the
-        # host and uploaded once: a copy per step would wait for the card,
-        # and a CPU scalar divisor would turn the division into a
-        # reciprocal multiply on the card
-        self.corrections = torch.stack([torch.stack([
-            1 - torch.tensor(d, dtype=torch.float32)
-            ** torch.tensor(k, dtype=torch.int32) for d in (self.b1, self.b2)])
-            for k in range(1, steps + 1)]).to(params.device)
+        self.corrections = _corrections(steps, params.device)
 
     def step(self, params: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         b1, b2 = self.b1, self.b2
@@ -324,14 +342,28 @@ def make_register_batch(image_shape: Tuple[int, int],
     lattices are gathered onto the mesh's first device with the padding
     sliced off (``device`` is then unused).  The loss is a sum of per-pair energies, so every pair's
     Adam path is its own and the result is the unsharded run's.
+
+    The factory is cached on (image_shape, cfg, mesh, device, axis), at
+    most 64 of them, as the JAX ``lru_cache`` is: a cohort that asks for
+    it per subject gets the same object back.  On the card each call
+    replays the CUDA graphs of ``reg/programs.py``, captured at the first
+    call of each (pairs, image shape, cfg); every device of a mesh has
+    its own.
     """
     if cfg.metric not in ("ssd", "nmi"):
         raise ValueError(f"unknown metric {cfg.metric!r}")
     if cfg.warp_backend not in WARP_BACKENDS:
         raise ValueError(f"warp_backend must be one of {WARP_BACKENDS}, "
                          f"got {cfg.warp_backend!r}")
+    dev = None if mesh is not None else resolve_device(device)
+    return _make_register_batch(tuple(int(d) for d in image_shape), cfg,
+                                mesh, dev, axis)
+
+
+@functools.lru_cache(maxsize=64)
+def _make_register_batch(image_shape, cfg, mesh, device, axis):
     if mesh is None:
-        return _register_on(image_shape, cfg, resolve_device(device))
+        return _register_on(image_shape, cfg, device)
     devices = mesh.axis_devices(axis)
     per_device = {str(d): _register_on(image_shape, cfg, d)
                   for d in devices}
@@ -354,7 +386,9 @@ def make_register_batch(image_shape: Tuple[int, int],
 
 def _register_on(image_shape: Tuple[int, int], cfg: RegConfig,
                  dev: torch.device):
-    """:func:`make_register_batch`'s optimiser on one device."""
+    """:func:`make_register_batch`'s optimiser on one device: a program
+    for the inputs (mask, normalisation, edge padding), then one per
+    pyramid level (``reg/programs.py``)."""
     X, Y = image_shape
     factors = [2 ** (cfg.levels - 1 - l) for l in range(cfg.levels)]
     # pad once so every pyramid level divides exactly (edge replicate —
@@ -407,16 +441,9 @@ def _register_on(image_shape: Tuple[int, int], cfg: RegConfig,
             x = gaussian_blur(x, sig)
         return x[:, ::f, ::f] if f > 1 else x
 
-    # the optimiser records autograd whatever mode the caller entered:
-    # inference mode (the deploy engine's) would make every tensor made
-    # here an inference tensor, which autograd refuses
-    @torch.inference_mode(False)
-    def register(targets, sources):
-        targets = torch.as_tensor(targets, device=dev)
-        sources = torch.as_tensor(sources, device=dev)
-        B = targets.shape[0]
-        if B == 0:
-            raise ValueError("empty registration batch: no frame pairs")
+    def prepare(targets, sources):
+        """(targets, sources) → the normalised, padded pair and the
+        target's padding mask, each (B, Xp, Yp)."""
         with torch.no_grad():
             # MIRTK's "Padding value": voxels at/below it in the TARGET are
             # excluded from the similarity (par/ffd_cine_2d_motion.cfg:12)
@@ -429,19 +456,26 @@ def _register_on(image_shape: Tuple[int, int], cfg: RegConfig,
                 tgt_n, src_n, mask_full = (
                     F.pad(t[:, None], pad, mode="replicate")[:, 0]
                     for t in (tgt_n, src_n, mask_full))
+        return tgt_n, src_n, mask_full
 
-        controls = []
-        for l in range(cfg.levels):
-            Xl, Yl = level_shapes[l]
-            f = factors[l]
+    def level_program(l):
+        """Level l's program: (tgt_n, src_n, mask_full, *finished
+        lattices) → (its lattice,) after all of its Adam steps, the JAX
+        ``step_block``'s one dispatch (with the level's blur and stride and
+        ``synth_prev_levels``)."""
+        Xl, Yl = level_shapes[l]
+        f = factors[l]
+        Cx, Cy = bspline.lattice_shape((Xl, Yl), cfg.spacing)
+
+        def program(tgt_n, src_n, mask_full, *prev):
+            B = tgt_n.shape[0]
             with torch.no_grad():
                 tgt_l = pyramid(tgt_n, l)
                 src_l = pyramid(src_n, l)
                 mask_l = mask_full[:, ::f, ::f] if f > 1 else mask_full
-                base = (synth_prev_levels(controls, l) if controls
-                        else torch.zeros((B, Xl, Yl, 2), device=dev))
-            Cx, Cy = bspline.lattice_shape((Xl, Yl), cfg.spacing)
-            c = torch.zeros((B, Cx, Cy, 2), device=dev)
+                base = (synth_prev_levels(prev, l) if prev
+                        else torch.zeros((B, Xl, Yl, 2), device=tgt_n.device))
+            c = torch.zeros((B, Cx, Cy, 2), device=tgt_n.device)
             opt = _Adam(c, cfg.lr, cfg.iters)
             for _ in range(cfg.iters):
                 with torch.enable_grad():
@@ -450,9 +484,27 @@ def _register_on(image_shape: Tuple[int, int], cfg: RegConfig,
                     (g,) = torch.autograd.grad(loss, c_req)
                 with torch.no_grad():
                     c = opt.step(c, g)
-            controls.append(c)
+            return (c,)
 
+        return program
+
+    levels = [level_program(l) for l in range(cfg.levels)]
+
+    # the optimiser records autograd whatever mode the caller entered:
+    # inference mode (the deploy engine's) would make every tensor made
+    # here an inference tensor, which autograd refuses
+    @torch.inference_mode(False)
+    def register(targets, sources):
+        targets = torch.as_tensor(targets, device=dev)
+        sources = torch.as_tensor(sources, device=dev)
+        if targets.shape[0] == 0:
+            raise ValueError("empty registration batch: no frame pairs")
+        tgt_n, src_n, mask_full = programs.run(
+            ("register-inputs", cfg), prepare, targets, sources)
+        controls = []
+        for l in range(cfg.levels):
+            controls += programs.run(("register-level", l, cfg), levels[l],
+                                     tgt_n, src_n, mask_full, *controls)
         return tuple(c * f for c, f in zip(controls, factors))
 
     return register
-
