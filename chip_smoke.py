@@ -28,7 +28,11 @@
    the card, checks that the fused head launched, prints per-subject cine
    wall and device time, Dice against the phantom truth and
    LVEDV/LVESV/LVEF, and compares the card's labels with the port's CPU
-   path on a reduced cine;
+   path on a reduced cine; then one cine on an engine: its first call
+   (an eager run, then the captures of the engine's prep, chunk forward
+   and pack programs, listed), one cine by stage, and the cine on the
+   eager route and through the graphs in turns (host dispatch seconds,
+   device spans, head launches, labels bitwise compared);
 4. on the deployed segmentations, runs the wall-thickness CLI and the SA
    strain driver (``RegConfig.cine_2d_motion()``, warp-Dice on) for every
    subject on the card, checks that both B-spline kernels launched,
@@ -40,7 +44,9 @@
    seconds and memory printed), and the last subject's registration and
    fields run on the eager route and through the graphs (ms, device ops,
    idle share under torch.profiler; strain tables, warp-Dice and fields
-   bitwise equal, or within the CPU bounds with the reason printed);
+   bitwise equal, or within the CPU bounds with the reason printed), and
+   so do the point sampling and the warp-Dice (device and host ms, device
+   ops and busy ms, outputs bitwise compared);
 5. drives the cohort CLI (``cli.run_cohort``) in full mode — the SA
    chain, then the la_2ch / la_4ch / seg4 deploys with the trained LA
    bundles (2, 3 and 6 classes), atrial volumes, LA strain, and the
@@ -57,12 +63,28 @@
    the CPU's on a reduced subject, and every 3-worker run's tables
    against the 1-worker run's (equal); prints one subject's LA strain
    alone (graphs and the eager route, bitwise compared)
-   (launches, device span) and each LA cine's device span;
+   (launches, device span) and, per LA bundle, a fresh engine's first
+   call (eager run + captures, GC pauses), the cine on each route with 1
+   worker and with 3 threads on the engine (host dispatch, device spans,
+   labels bitwise compared), and a second fresh engine's first call
+   (its programs then released, timed); every cohort run under a stack
+   sampler that prints the host's stalls of 1 s or more with their
+   stacks; then ``run_cohort_sa`` through one SA engine on 6 subjects of
+   6 cine shapes (Z 8-13, matrices 180x192 to 204x208), one subject a
+   call: after each new shape the engine's programs, bytes and drops
+   under its bound, the registration's programs, memory_reserved, and
+   host stalls; an engine bounded to a third of that on the same cines
+   twice (labels bitwise the first engine's, drops counted), and both
+   engines released (seconds, memory_reserved after);
 6. the aortic stage: Dice of the cohort's aortic segs against the
-   phantom truth, the device span per aortic cine, the U-Net's and the
-   ConvLSTM's device spans (CUDA events), the ConvLSTM's device
-   operations and busy share under torch.profiler, and the card's labels
-   and area row against the port's CPU path on a cine cut to 10 frames;
+   phantom truth, the device span per aortic cine (the first call
+   captures the engine's programs, listed), the cine on each route in
+   turns (host dispatch, device span, labels bitwise compared), the
+   U-Net's and the ConvLSTM's device spans (CUDA events), the ConvLSTM
+   on the eager route and as one graph (span, host time, device
+   operations and busy share under torch.profiler, logits bitwise
+   compared), and the card's labels and area row against the port's CPU
+   path on a cine cut to 10 frames;
 7. training: writes 8 phantom subjects' ED/ES pairs (192, 208, 10) with
    labels and 2 for validation, and runs ``cli.train_network.main`` on
    the card at the released FCN_sa architecture (5 levels, filters
@@ -161,9 +183,14 @@
    kernels' likewise and from the propagation and the both-directions
    run, with their times at those shapes; launches on the registration
    path come from graph replays, each adding the launches its capture
-   recorded, and from the first, eager call of each shape), every
-   captured program's capture seconds and memory, and, last,
-   ``{"ok": true, "device": {...}}``.
+   recorded, and from the first, eager call of each shape; the head's
+   likewise from the engines' graphs), every captured program's capture
+   seconds and memory (the module-level cache's, then each held engine's,
+   and the total), and, last, ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --sort_probe`` instead times the first
+``torch.sort`` of int16 cines at the sizes the run meets, eager and
+captured, under torch.profiler (:func:`sort_probe`).
 
 ``python3 chip_smoke.py --forward_vs <tree>`` instead builds the B-spline
 forward of another checkout ``<tree>`` (an earlier design, C interface
@@ -180,10 +207,13 @@ the kernels' test inputs come from fixed seeds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import gc
 import hashlib
 import json
+import linecache
 import math
 import os
 import random
@@ -417,15 +447,227 @@ def device_split(fn, names) -> dict:
 
 
 def route(name):
-    """The registration programs' route for a block: ``"graphs"`` (the
-    default: CUDA graphs captured once per shape and replayed) or
-    ``"eager"`` (the module-private comparison route, op by op)."""
-    import contextlib
-
+    """The programs' route for a block: ``"graphs"`` (the default: CUDA
+    graphs captured once per shape and replayed, the registration's and
+    the engines') or ``"eager"`` (the module-private comparison route, op
+    by op)."""
     from ukbb_cardiac_tpu_torch.reg import programs
 
     return (programs._eager_route() if name == "eager"
             else contextlib.nullcontext())
+
+
+def threaded_dispatches(card, what, dispatch, name, want, workers=3):
+    """``workers`` threads each run ``dispatch()`` once at the same time
+    on the ``name`` route (the cohort's workers sharing one engine):
+    prints the wall and each cine's host dispatch and device span; fails
+    unless every thread's labels are ``want`` bitwise."""
+    results = [None] * workers
+
+    def work(i):
+        with route(name):
+            results[i] = timed_dispatch(dispatch, sync=False)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(workers)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError(f"{what}: a worker did not finish")
+    same = all(np.array_equal(r[0], want) for r in results)
+    print(f"  {what}, {workers} workers, {name} route: wall {wall:.4f} s; "
+          f"per cine dispatch "
+          + "/".join(f"{r[1]:.4f}" for r in results) + " s, device span "
+          + "/".join(f"{r[2]:.4f}" for r in results) + f" ms [{card}]; "
+          f"labels {'bitwise equal to' if same else 'DIFFER from'} the "
+          f"1-worker run's")
+    if not same:
+        raise AssertionError(f"{what}: {workers} workers' labels differ")
+
+
+# the engines whose programs the last phase lists
+HELD_ENGINES = []
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Collect the Python garbage collector's pauses (seconds, generation)
+    inside the block, into the list it yields."""
+    pauses, started = [], []
+
+    def note(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((time.perf_counter() - started.pop(),
+                           info["generation"]))
+
+    gc.callbacks.append(note)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(note)
+
+
+class StallWatch:
+    """Samples every thread's Python stack each ``every`` seconds inside
+    the block and keeps the spans in which a thread stayed on one stack
+    for ``at_least`` seconds or more (waits for other threads and for
+    work queues aside), with the other threads' innermost frames while it
+    lasted: where the host stalls, and in what call.  A sample walks the
+    frames only (no formatting), so the sampler holds the GIL briefly;
+    it needs the GIL, so its longest gap between samples tells a thread
+    held in a call that released the GIL (short gaps) from one holding
+    it."""
+
+    IDLE = ("threading.py", "queue.py", "thread.py", "_base.py")
+
+    def __init__(self, every: float = 0.05, at_least: float = 1.0):
+        self.every, self.at_least = every, at_least
+        self.spans = []   # (seconds, thread name, stack, others)
+        self.gap = 0.0    # the longest interval between two samples
+        self._stop = threading.Event()
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+    def _sample(self):
+        names = {}
+        seen = {}     # thread id -> (stack, since, last seen)
+        others = {}   # thread name -> innermost frame, at the last sample
+        me = threading.get_ident()
+        prev = time.perf_counter()
+        while True:
+            stopping = self._stop.wait(self.every)
+            now = time.perf_counter()
+            self.gap = max(self.gap, now - prev)
+            prev = now
+            frames = sys._current_frames()
+            for t in threading.enumerate():
+                names[t.ident] = t.name
+            live = {}
+            for tid, frame in frames.items():
+                if tid == me or stopping:
+                    continue
+                stack = _frames(frame)
+                old = seen.get(tid)
+                live[tid] = ((old[0], old[1], now) if old and old[0] == stack
+                             else (stack, now, now))
+            for tid, (stack, since, last) in seen.items():
+                if live.get(tid, (None,))[0] != stack:
+                    name = names.get(tid, str(tid))
+                    self._keep(name, stack, last - since,
+                               {n: f for n, f in others.items() if n != name})
+            seen = live
+            others = {names.get(tid, str(tid)): st[0][-1]
+                      for tid, st in live.items() if st[0]}
+            if stopping:
+                return
+
+    def _keep(self, name, stack, seconds, others):
+        if (seconds >= self.at_least and stack
+                and not stack[-1][0].endswith(self.IDLE)):
+            self.spans.append((seconds, name, stack, others))
+
+    def report(self, what: str, top: int = 3) -> str:
+        """The ``top`` longest stalls, one block each."""
+        head = (f"(stacks sampled every {self.every} s; the sampler's "
+                f"longest gap {self.gap:.3f} s)")
+        if not self.spans:
+            return (f"  {what}: no host stall of {self.at_least} s or more "
+                    + head)
+        lines = [f"  {what}: {len(self.spans)} host stall(s) of "
+                 f"{self.at_least} s or more {head}; the longest:"]
+        for seconds, name, stack, others in sorted(
+                self.spans, key=lambda x: -x[0])[:top]:
+            lines.append(f"    {seconds:.3f} s in thread {name}, innermost "
+                         f"last:")
+            lines += ["      " + _frame_line(f) for f in stack[-4:]]
+            lines.append("      other threads meanwhile: " + ("; ".join(
+                f"{n}: {_frame_line(f)}" for n, f in sorted(others.items()))
+                or "none"))
+        return "\n".join(lines)
+
+
+def _frames(frame, limit: int = 6) -> tuple:
+    """(file, line, function) of ``frame`` and its callers, at most
+    ``limit``, the innermost last."""
+    out = []
+    while frame is not None and len(out) < limit:
+        out.append((frame.f_code.co_filename, frame.f_lineno,
+                    frame.f_code.co_name))
+        frame = frame.f_back
+    return tuple(reversed(out))
+
+
+def _frame_line(f) -> str:
+    path, line, name = f
+    text = linecache.getline(path, line).strip()
+    if path.startswith(ROOT + os.sep):
+        path = os.path.relpath(path, ROOT)
+    return f"{path}:{line} {name}: {text}"
+
+
+def head_launches() -> int:
+    from ukbb_cardiac_tpu_torch.models import fused_head as fh
+
+    return fh.fused_head.launches
+
+
+def timed_dispatch(dispatch, sync: bool = True):
+    """``dispatch()`` (a PendingSegmentation) waited for: (labels, host
+    seconds until it returned, device span ms, head launches counted
+    meanwhile, GC pause seconds inside it).  ``sync``: wait for the card
+    to be idle first."""
+    if sync:
+        torch.cuda.synchronize()
+    before = head_launches()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        pending = dispatch()
+        host = time.perf_counter() - t0
+        labels = pending.result()
+    return (labels, host, pending.device_ms, head_launches() - before,
+            sum(p for p, _ in pauses))
+
+
+def dispatch_routes(card, what, dispatch,
+                    order=("eager", "graphs", "graphs", "eager")):
+    """``dispatch()`` on each route of ``order`` in turn: prints the host
+    dispatch seconds, the device span and the head launches of each call;
+    fails unless every call's labels and launches are the first's.
+    Returns {route: [(host s, span ms), ...]}."""
+    runs = []
+    for name in order:
+        with route(name):
+            runs.append((name,) + timed_dispatch(dispatch))
+    for name, _, host, span, n, gc_s in runs:
+        print(f"  {what}, {name} route: dispatch {host:.4f} s, device span "
+              f"{span:.4f} ms, head launches {n}, GC {gc_s:.4f} s [{card}]")
+    same = all(np.array_equal(r[1], runs[0][1]) for r in runs)
+    print(f"  {what}: labels of the graphs route "
+          f"{'bitwise equal to' if same else 'DIFFER from'} the eager "
+          f"route's, head launches "
+          f"{'equal' if len({r[4] for r in runs}) == 1 else 'DIFFER'}")
+    if not same or len({r[4] for r in runs}) != 1:
+        raise AssertionError(f"{what}: the graphs route differs from the "
+                             "eager route")
+    out = {}
+    for name, _, host, span, _, _ in runs:
+        out.setdefault(name, []).append((host, span))
+    return out
 
 
 def profiled(fn):
@@ -453,11 +695,12 @@ def describe_program(prog) -> str:
 
 def captured_programs(progs) -> str:
     """One line per captured program: capture seconds, the growth of
-    memory_reserved over its capture, launches a replay adds."""
+    memory_reserved over its capture, launches a replay adds (the head's
+    or the B-spline kernels')."""
     return "\n".join(
         f"    {describe_program(p)}: capture {p.capture_s:.3f} s, "
         f"memory_reserved +{p.reserved / 2 ** 20:.1f} MiB, {p.replays} "
-        f"replays, {sum(p.launches.counts.values())} B-spline launches a "
+        f"replays, {sum(p.launches.counts.values())} kernel launches a "
         f"replay" for p in progs if p.graph is not None)
 
 
@@ -1248,10 +1491,25 @@ def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
     if agree < 0.999:
         raise AssertionError(f"card and CPU labels agree on only {agree}")
 
-    # where one cine's wall goes, stage by stage, without the pipeline
-    # (a fresh copy of the file, so the reader's byte cache misses)
+    # the engine's first call of the full shape runs each program eagerly
+    # and captures it (prep, the 64-slice chunk forward, pack)
     path = os.path.join(work, "stages_sa.nii.gz")
     shutil.copy(os.path.join(data_dir, "1000001", "sa.nii.gz"), path)
+    cine = np.asarray(nifti.load(
+        os.path.join(data_dir, "1000000", "sa.nii.gz")).dataobj)
+    n_before = len(gpu.programs())
+    _, host, span, n, gc_s = timed_dispatch(
+        lambda: gpu.segment_sequence_dispatch(cine))
+    new = gpu.programs()[n_before:]
+    print(f"  first call of {cine.shape} on an engine: dispatch {host:.4f} s "
+          f"(eager run, then {len(new)} captures in "
+          f"{sum(p.capture_s for p in new):.4f} s), device span "
+          f"{span:.4f} ms, head launches {n}, GC {gc_s:.4f} s [{card}]:\n"
+          + captured_programs(new))
+    HELD_ENGINES.append(("SA", gpu))
+
+    # where one cine's wall goes, stage by stage, without the pipeline
+    # (a fresh copy of the file, so the reader's byte cache misses)
     t = [time.perf_counter()]
     nim = nifti.load(path)
     cine = np.asarray(nim.dataobj)
@@ -1270,6 +1528,9 @@ def main_path_phase(card, fh, nifti, deploy, ventricle, engine_mod, work,
           f"{s[1]:.4f} s, wait for the card {s[2]:.4f} s (device span "
           f"{pending.device_ms:.4f} ms), unpack {s[3]:.4f} s, seg write "
           f"{s[4]:.4f} s [{card}]")
+    # the same cine on the eager route and through the graphs, in turns
+    dispatch_routes(card, f"SA cine {cine.shape}",
+                    lambda: gpu.segment_sequence_dispatch(cine))
     return launches
 
 
@@ -1413,31 +1674,56 @@ def strain_phase(card, nifti, crop, bf, strain, register, cli_wt,
             print("  profiled: no device time recorded (device busy share "
                   "not measured)")
     same_fields = torch.equal(stages["eager"], stages["graphs"])
-    # the stages after the fields, still eager (the JAX _sample_program
-    # and _warp_dice_program): the contour points' displacements and the
-    # warp-Dice, on points and labels of the subject's sizes
+    # the stages after the fields (the JAX _sample_program and
+    # _warp_dice_program): the contour points' displacements and the
+    # warp-Dice, on points and labels of the subject's sizes, on each
+    # route (the graphs already captured by the strain path above)
     fields = stages["graphs"]
     rng = np.random.RandomState(0)
     pts = torch.from_numpy(rng.uniform(
-        0, min(Xp, Yp) - 1, (fields.shape[0], 200, 2)).astype(
-            np.float32)).cuda()
+        0, min(Xp, Yp) - 1, (fields.shape[0], strain.bucket_points(200),
+                             2)).astype(np.float32)).cuda()
     labels = torch.from_numpy(rng.randint(
         0, 3, fields.shape[:4]).astype(np.int32)).cuda()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    tail = {}
     with torch.no_grad():
-        torch.cuda.synchronize()
-        ev[0].record()
-        strain.sample_points(fields, pts)
-        ev[1].record()
-        strain.warp_dice(labels, fields, Xp, Yp)
-        ev[2].record()
-        ev[2].synchronize()
-        ops = [profiled(lambda: strain.sample_points(fields, pts)),
-               profiled(lambda: strain.warp_dice(labels, fields, Xp, Yp))]
-    print(f"  after the fields (eager): point sampling "
-          f"{ev[0].elapsed_time(ev[1]):.3f} ms, {ops[0][0]} device ops busy "
-          f"{ops[0][1]:.3f} ms; warp-Dice {ev[1].elapsed_time(ev[2]):.3f} "
-          f"ms, {ops[1][0]} device ops busy {ops[1][1]:.3f} ms [{card}]")
+        for name in ("eager", "graphs", "graphs", "eager"):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with route(name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                disp = strain.sample_points(fields, pts)
+                ev[1].record()
+                t1 = time.perf_counter()
+                dice_t = strain.warp_dice(labels, fields, Xp - 3, Yp - 2)
+                ev[2].record()
+                t2 = time.perf_counter()
+                ev[2].synchronize()
+                ops = [profiled(lambda: strain.sample_points(fields, pts)),
+                       profiled(lambda: strain.warp_dice(labels, fields,
+                                                         Xp - 3, Yp - 2))]
+            if name in tail:
+                same = (torch.equal(disp, tail[name][0])
+                        and torch.equal(dice_t, tail[name][1]))
+                if not same:
+                    raise AssertionError(f"point sampling / warp-Dice on "
+                                         f"the {name} route changed")
+            tail[name] = (disp, dice_t)
+            print(f"  after the fields, {name} route: point sampling "
+                  f"{ev[0].elapsed_time(ev[1]):.3f} ms (host "
+                  f"{1e3 * (t1 - t0):.3f} ms), {ops[0][0]} device ops busy "
+                  f"{ops[0][1]:.3f} ms; warp-Dice "
+                  f"{ev[1].elapsed_time(ev[2]):.3f} ms (host "
+                  f"{1e3 * (t2 - t1):.3f} ms), {ops[1][0]} device ops busy "
+                  f"{ops[1][1]:.3f} ms [{card}]")
+    same = all(torch.equal(a, b) for a, b in zip(tail["eager"],
+                                                   tail["graphs"]))
+    print(f"  point sampling and warp-Dice: graphs "
+          f"{'bitwise equal to' if same else 'DIFFER from'} the eager "
+          f"route")
+    if not same:
+        raise AssertionError("graphed point sampling / warp-Dice differ")
 
     # the last subject's strain tables and warp-Dice on the eager route
     # against its graphed run above
@@ -1581,12 +1867,14 @@ def cohort_phase(card, work):
         inner = (per_worker_streams(cohort_mod)
                  if streams == "stream per worker" else None)
         try:
-            rc = run_cohort.main(args + ["--workers", str(workers),
-                                         "--output_dir", out,
-                                         "--manifest", manifest])
+            with StallWatch() as watch:
+                rc = run_cohort.main(args + ["--workers", str(workers),
+                                             "--output_dir", out,
+                                             "--manifest", manifest])
         finally:
             if inner is not None:
                 cohort_mod.process_subject_full = inner
+        print(watch.report(tag))
         launches = {"fused_head": fh.fused_head.launches,
                     "bspline_field": bf.bspline_field.launches,
                     "bspline_field_adjoint": bf.bspline_field.adjoint_launches,
@@ -1595,12 +1883,19 @@ def cohort_phase(card, work):
         first = first or launches
         with open(manifest) as f:
             m = json.load(f)
+        if rc != 0 or len(m["succeeded"]) != N_SUBJECTS or m["failed"]:
+            raise AssertionError(f"cohort {tag}: rc {rc}, "
+                                 f"failed {m['failed']}")
         wall = m["wall_seconds"]
         median = {k: float(np.median([st[k] for st in
                                       m["stage_seconds"].values()]))
                   for k in COHORT_STAGES}
         print(f"  {tag}: cohort wall {wall:.3f} s, "
-              f"{len(m['succeeded']) / wall:.4f} subjects/s [{card}]")
+              f"{len(m['succeeded']) / wall:.4f} subjects/s; "
+              f"memory_reserved after it "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB, allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB (the run "
+              f"released its engines' graphs) [{card}]")
         print(f"  {tag}: median stage s over subjects: "
               + ", ".join(f"{k} {v:.3f}" for k, v in median.items())
               + f" [{card}]")
@@ -1611,9 +1906,6 @@ def cohort_phase(card, work):
               + f"), bspline_field "
               f"{launches['bspline_field'] / N_SUBJECTS:g}, adjoint "
               f"{launches['bspline_field_adjoint'] / N_SUBJECTS:g}")
-        if rc != 0 or len(m["succeeded"]) != N_SUBJECTS or m["failed"]:
-            raise AssertionError(f"cohort {tag}: rc {rc}, "
-                                 f"failed {m['failed']}")
         if not all(
                 launches[k] > 0 for k in ("fused_head", "bspline_field",
                                           "bspline_field_adjoint")):
@@ -1677,16 +1969,39 @@ def cohort_phase(card, work):
         seg_card, seg_cpu = (np.asarray(nifti.load(os.path.join(
             d, f"{prefix[key]}.nii.gz")).dataobj) for d in (subj, cpu_subj))
         agree = float((seg_cpu == seg_card).mean())
-        # each LA cine's device span on the card
+        # each LA cine's device span on the card: a fresh engine's first
+        # call (an eager run, then the captures), then each route with 1
+        # and 3 workers, then a second fresh engine's first call (the
+        # capture is the engine's; what the process loads once is not
+        # paid again)
         cine = np.asarray(nifti.load(os.path.join(
             subj, f"{seq}.nii.gz")).dataobj)
-        eng = InferenceEngine(deploy.load_segmentation_model(
-            os.path.join(WEIGHTS, path), "cuda"))
-        pending = eng.segment_sequence_dispatch(cine)
-        pending.result()
+        for n_engine in (1, 2):
+            eng = InferenceEngine(deploy.load_segmentation_model(
+                os.path.join(WEIGHTS, path), "cuda"))
+            want, host, span, _, gc_s = timed_dispatch(
+                lambda: eng.segment_sequence_dispatch(cine))
+            print(f"  {key} {cine.shape}: fresh engine {n_engine}, first "
+                  f"call (eager run + {len(eng.programs())} captures in "
+                  f"{sum(p.capture_s for p in eng.programs()):.4f} s): "
+                  f"dispatch {host:.4f} s, device span {span:.4f} ms, GC "
+                  f"{gc_s:.4f} s [{card}]")
+            if n_engine == 2:
+                t0 = time.perf_counter()
+                eng.release_programs()
+                print(f"  {key}: fresh engine 2's programs released in "
+                      f"{time.perf_counter() - t0:.4f} s")
+            if n_engine == 1:
+                dispatch_routes(card, f"{key} {cine.shape}, 1 worker",
+                                lambda: eng.segment_sequence_dispatch(cine))
+                for name in ("eager", "graphs"):
+                    threaded_dispatches(
+                        card, f"{key} {cine.shape}",
+                        lambda: eng.segment_sequence_dispatch(cine), name,
+                        want)
+                HELD_ENGINES.append((key, eng))
         print(f"  {key} {cine.shape}: card vs CPU label agreement "
-              f"{agree:.6f}; device span per cine {pending.device_ms:.4f} ms "
-              f"[{card}]")
+              f"{agree:.6f}")
         if agree < 0.999:
             raise AssertionError(f"{key}: card and CPU labels agree on only "
                                  f"{agree}")
@@ -1786,6 +2101,96 @@ def cohort_phase(card, work):
     return launches, truth
 
 
+# SA cines as a cohort meets them: UK Biobank's differ in slices and in
+# matrix size; (198, 208) and (204, 208) pad to one 208^2 chunk plane
+SHAPES = [(192, 208, 10, 50), (192, 208, 8, 50), (192, 208, 12, 50),
+          (198, 208, 11, 50), (204, 208, 13, 50), (180, 192, 9, 50)]
+
+
+def shapes_phase(card, work):
+    """``run_cohort_sa`` through one SA engine (the default bound on its
+    programs) on subjects of six cine shapes, one subject a call, as a
+    long run meets new shapes: after each, the engine's programs and
+    bytes, the programs it dropped, the registration's programs, and
+    memory_reserved; host stalls watched.  Then the same cines through
+    an engine bounded to a third of that, each twice: labels bitwise the
+    first engine's.  Both engines released at the end."""
+    from ukbb_cardiac_tpu_torch.infer import deploy
+    from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
+    from ukbb_cardiac_tpu_torch.io import nifti
+    from ukbb_cardiac_tpu_torch.parallel import cohort as cohort_mod
+    from ukbb_cardiac_tpu_torch.reg import programs
+
+    print(f"[5/14] cohort across SA cine shapes: run_cohort_sa on "
+          f"{len(SHAPES)} subjects {SHAPES} int16, one engine, one subject "
+          f"a call", flush=True)
+    root = os.path.join(work, "shapes")
+    cines = []
+    for i, shape in enumerate(SHAPES):
+        cine, _ = sax_phantom(*shape, r_lv=30.0, wall=10.0,
+                              rng=np.random.RandomState(40 + i))
+        d = os.path.join(root, f"{3000000 + i}")
+        os.makedirs(d)
+        save_nifti(nifti, os.path.join(d, "sa.nii.gz"), cine, AFFINE_SA)
+        cines.append(cine)
+    eng = InferenceEngine(deploy.load_segmentation_model(BUNDLE, "cuda"))
+    torch.cuda.synchronize()
+    print(f"  before: memory_reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB; the engine's "
+          f"bound {eng._programs.max_bytes / 2 ** 30:.3f} GiB [{card}]")
+    most = 0
+    for i, shape in enumerate(SHAPES):
+        with StallWatch() as watch:
+            result = cohort_mod.run_cohort_sa(
+                root, eng, workers=1, start_idx=i, end_idx=i + 1,
+                verbose=False, device="cuda")
+        if len(result.fleet.succeeded) != 1:
+            raise AssertionError(f"shape {shape}: {result.fleet.failed}")
+        (stages,) = result.stage_seconds.values()
+        held = eng._programs.nbytes()
+        most = max(most, held)
+        shared = programs.programs()
+        print(f"  {shape}: subject {result.wall_seconds:.3f} s (segment "
+              f"{stages['segment']:.3f}, strain {stages['strain']:.3f}); "
+              f"engine {len(eng.programs())} programs "
+              f"{held / 2 ** 30:.3f} GiB, {eng._programs.dropped} dropped; "
+              f"registration {len(shared)} programs "
+              f"{sum(p.reserved for p in shared) / 2 ** 30:.3f} GiB; "
+              f"memory_reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f}"
+              f" GiB, allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB [{card}]")
+        print(watch.report(f"{shape}"))
+        if held > eng._programs.max_bytes and len(eng.programs()) > 1:
+            raise AssertionError(f"the engine holds {held} bytes of "
+                                 f"programs, over its bound")
+    want = [eng.segment_sequence_dispatch(c).result() for c in cines]
+    small = InferenceEngine(eng.model)
+    small._programs.max_bytes = most // 3
+    same = True
+    for _ in range(2):
+        for c, w in zip(cines, want):
+            same &= np.array_equal(small.segment_sequence_dispatch(c)
+                                   .result(), w)
+            if (small._programs.nbytes() > small._programs.max_bytes
+                    and len(small.programs()) > 1):
+                raise AssertionError("the bounded engine is over its bound")
+    print(f"  an engine bounded to "
+          f"{small._programs.max_bytes / 2 ** 30:.3f} GiB: "
+          f"{small._programs.dropped} programs dropped over 2 x "
+          f"{len(SHAPES)} cines, {len(small.programs())} held "
+          f"{small._programs.nbytes() / 2 ** 30:.3f} GiB; labels "
+          f"{'bitwise equal to' if same else 'DIFFER from'} the first "
+          f"engine's")
+    if not same:
+        raise AssertionError("a bounded engine's labels differ")
+    for name, e in (("bounded", small), ("first", eng)):
+        t0 = time.perf_counter()
+        e.release_programs()
+        print(f"  the {name} engine released in "
+              f"{time.perf_counter() - t0:.4f} s: memory_reserved "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB [{card}]")
+
+
 def conv_flops(module, run) -> float:
     """FLOPs of the convolutions (with BN) inside ``module`` during
     ``run()``: 2 per product, a transposed conv counted by its input
@@ -1812,12 +2217,11 @@ def conv_flops(module, run) -> float:
 
 def aortic_phase(card, work, truth):
     """The cohort's aortic stage seen closer: Dice of its segs, the device
-    span of one aortic cine through the deploy, the U-Net / ConvLSTM split
-    (CUDA events), the ConvLSTM under torch.profiler, and the card's
-    labels and area row against the port's CPU path on a 10-frame cut."""
+    span of one aortic cine through the deploy on each route, the U-Net /
+    ConvLSTM split (CUDA events), the ConvLSTM eager and as a graph under
+    torch.profiler, and the card's labels and area row against the port's
+    CPU path on a 10-frame cut."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import (AO_SIZE,
                                                         load_aortic_engine)
@@ -1826,6 +2230,7 @@ def aortic_phase(card, work, truth):
     from ukbb_cardiac_tpu_torch.ops.intensity import normalise_intensity_torch
     from ukbb_cardiac_tpu_torch.phenotype.aorta import (aortic_area_measures,
                                                         aortic_row)
+    from ukbb_cardiac_tpu_torch.reg import programs
 
     print(f"[6/14] aortic stage: UNet-LSTM_ao on {AO_SHAPE} int16 cines",
           flush=True)
@@ -1845,6 +2250,7 @@ def aortic_phase(card, work, truth):
                       sorted(stages.items())) + f" [{card}]")
 
     engine = load_aortic_engine(AO_BUNDLE, "cuda")
+    HELD_ENGINES.append(("aortic", engine))
     subj = os.path.join(data_dir, sorted(truth)[0])
     cine = np.asarray(nifti.load(os.path.join(subj, "ao.nii.gz")).dataobj)
     for i in range(3):
@@ -1852,9 +2258,14 @@ def aortic_phase(card, work, truth):
         pending = engine.segment_cine_dispatch(cine)
         t1 = time.perf_counter()
         pending.result()
-        print(f"  deploy of one aortic cine, call {i + 1}: dispatch "
+        print(f"  deploy of one aortic cine, call {i + 1}"
+              f"{' (eager run + captures)' if i == 0 else ''}: dispatch "
               f"{t1 - t0:.4f} s, to labels {time.perf_counter() - t0:.4f} s; "
               f"device span {pending.device_ms:.4f} ms [{card}]")
+    print("  the engine's programs [" + card + "]:\n"
+          + captured_programs(engine.programs()))
+    dispatch_routes(card, f"aortic cine {cine.shape}",
+                    lambda: engine.segment_cine_dispatch(cine))
 
     # the same pipeline by part, CUDA events between the parts
     net = engine.net
@@ -1893,21 +2304,46 @@ def aortic_phase(card, work, truth):
               f"{unet_flop / ms[1] / 1e9:.2f} TFLOP/s; "
               f"ConvLSTM {lstm_flop / 1e12:.4f} TFLOP at "
               f"{lstm_flop / ms[2] / 1e9:.2f} TFLOP/s [{card}]")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            net.lstm(feats.view(Z, T, *feats.shape[1:]))
-            torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(getattr(e, "self_device_time_total", 0) for e in kern) / 1e3
-    n_ops = sum(e.count for e in kern)
-    if busy > 0:
-        print(f"  ConvLSTM under torch.profiler: {n_ops} device ops "
-              f"({n_ops / (2 * T):.1f} per step), busy {busy:.4f} ms of the "
-              f"{ms[2]:.4f} ms unprofiled span "
-              f"({100 * (1 - busy / ms[2]):.1f} % idle) [{card}]")
-    else:
-        print("  ConvLSTM under torch.profiler: no device time recorded "
-              "(busy share not measured)")
+        # the ConvLSTM alone on each route: op by op, and its 2 x T steps
+        # captured as one graph by the programs' mechanism
+        feats = feats.view(Z, T, *feats.shape[1:])
+        lstm_programs = programs.ProgramCache()
+
+        def lstm(f):
+            return lstm_programs.run(("lstm",), lambda x: (net.lstm(x),),
+                                     f)[0]
+
+        lstm_out = {}
+        for name in ("eager", "graphs"):
+            with route(name):
+                lstm(feats)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[0].record()
+                lstm_out[name] = lstm(feats)
+                ev[1].record()
+                host = time.perf_counter() - t0
+                ev[1].synchronize()
+                span = ev[0].elapsed_time(ev[1])
+                n_ops, busy = profiled(lambda: lstm(feats))
+            if busy > 0:
+                print(f"  ConvLSTM, {name} route: {span:.4f} ms (the host "
+                      f"enqueued it in {1e3 * host:.4f} ms); under "
+                      f"torch.profiler {n_ops} device ops "
+                      f"({n_ops / (2 * T):.1f} per step), "
+                      f"busy {busy:.4f} ms of the {span:.4f} ms span "
+                      f"({100 * (1 - busy / span):.1f} % idle) [{card}]")
+            else:
+                print(f"  ConvLSTM, {name} route: {span:.4f} ms; under "
+                      "torch.profiler no device time recorded (busy share "
+                      "not measured)")
+        same = torch.equal(lstm_out["eager"], lstm_out["graphs"])
+        print(f"  ConvLSTM logits: graphs "
+              f"{'bitwise equal to' if same else 'DIFFER from'} the eager "
+              f"route")
+        if not same:
+            raise AssertionError("the graphed ConvLSTM differs")
 
     # the card against the port's CPU path on the cine cut to 10 frames:
     # labels, and the area row from each side's segs
@@ -3621,6 +4057,59 @@ def dp_phase(card, work, ao_root):
     return launches
 
 
+def sort_probe(card):
+    """The percentile rescale's ``torch.sort`` of an int16 cine at each
+    size the smoke run meets and 12 more, in a fresh process that has
+    reserved 16 GiB as a long run has: per size the first eager sort,
+    the second, and the sort captured into a CUDA graph after them (as a
+    program's warm-up and capture run it), each under torch.profiler
+    (CPU and CUDA activities), the host seconds of each; for a call of
+    0.1 s or more, its longest CPU-side events (aten ops and CUDA
+    runtime calls), to name where the host waits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sizes = sorted({X * Y * Z * T for X, Y, Z, T in SHAPES}
+                   | {192 * 208 * 50, AO_SHAPE[0] * AO_SHAPE[1] * 100}
+                   | {1_000_003 + 2_411_917 * k for k in range(12)})
+    print(f"sort probe: the first torch.sort of int16 cines at {len(sizes)} "
+          f"sizes, eager then captured [{card}]", flush=True)
+    blocks = [torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+              for _ in range(16)]
+    del blocks
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    for n in sizes:
+        x = torch.randint(0, 1000, (n,), generator=rng, device="cuda",
+                          dtype=torch.int16)
+        torch.cuda.synchronize()
+        row = []
+        for what in ("first", "second", "captured"):
+            graph = torch.cuda.CUDAGraph() if what == "captured" else None
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    if graph is None:
+                        torch.sort(x)
+                    else:
+                        with torch.cuda.graph(graph):
+                            torch.sort(x)
+                    host = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+            except RuntimeError as err:
+                row.append(f"{what} raised {str(err).splitlines()[0]}")
+                continue
+            row.append(f"{what} {host:.4f} s")
+            if host >= 0.1:
+                longest = sorted(
+                    (e for e in prof.events() if e.device_type.name == "CPU"),
+                    key=lambda e: -e.time_range.elapsed_us())[:6]
+                row.append("(longest: " + ", ".join(
+                    f"{e.name} {e.time_range.elapsed_us() / 1e6:.4f} s"
+                    for e in longest) + ")")
+            del graph
+        print(f"  n = {n}: " + "; ".join(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3645,6 +4134,10 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--sort_probe"]:
+        sort_probe(card)
+        print(card_line())
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--forward_vs":
         forward_vs_earlier(card, kernels, bf, sys.argv[2])
         print(card_line())
@@ -3665,6 +4158,7 @@ def main() -> int:
         # the kernels line counts the cohort's 1-worker run: the path a
         # user runs by default, through every kernel
         cohort_launches, truth = cohort_phase(card, work)
+        shapes_phase(card, work)
         aortic_phase(card, work, truth)
         train_launches = train_phase(card, work, fh)
         resnet_launches = resnet_phase(card, work, fh)
@@ -3693,6 +4187,22 @@ def main() -> int:
     print(f"  captured programs held: {len(held)}, memory_reserved +"
           f"{sum(p.reserved for p in held) / 2 ** 30:.3f} GiB in all "
           f"[{card}]:\n" + captured_programs(held))
+    # the engines' own programs (each engine holds its cache; the cohort
+    # runs' engines went with their runs)
+    engine_progs = []
+    for name, eng in HELD_ENGINES:
+        progs = [p for p in eng.programs() if p.graph is not None]
+        engine_progs += progs
+        print(f"  {name} engine: {len(progs)} programs, memory_reserved +"
+              f"{sum(p.reserved for p in progs) / 2 ** 30:.3f} GiB "
+              f"[{card}]:\n" + captured_programs(progs))
+    print(f"  the engines' programs held: {len(engine_progs)}, "
+          f"memory_reserved +"
+          f"{sum(p.reserved for p in engine_progs) / 2 ** 30:.3f} GiB; "
+          f"all programs "
+          f"{sum(p.reserved for p in held + engine_progs) / 2 ** 30:.3f} "
+          f"GiB; memory_reserved at the end "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB [{card}]")
 
     entries = [{
         "name": "fused_head", "route": "cuda",
@@ -3703,6 +4213,9 @@ def main() -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": None,
         "path": "cohort, 1 worker",
+        "launched_by": "replays of the deploy engines' CUDA graphs (each "
+                       "adds the launches its capture recorded) and the "
+                       "first, eager call of each shape on each engine",
         "ingestion": {"launches": ingest_launches["fused_head"]},
         "demo": {"launches": demo_launches["fused_head"]},
         "mesh": {"launches": mesh_launches["fused_head"]},

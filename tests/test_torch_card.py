@@ -8,6 +8,7 @@ machine that has no JAX (``tests/conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
 
+import contextlib
 import functools
 import os
 import subprocess
@@ -1008,3 +1009,267 @@ def test_a_failed_capture_raises(card):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:"), out.stdout
+
+
+# --- the deploy engines' programs (CUDA graphs) ----------------------------
+
+def _head_launches():
+    return dict(tfh.fused_head.launches_by_class)
+
+
+def _routes(call):
+    """``call()`` on the eager route, then twice through the graphs (the
+    first captures, the second replays): the three results and the head
+    launches by class that each counted."""
+    out = []
+    for eager in (True, False, False):
+        before = _head_launches()
+        with (programs._eager_route() if eager
+              else contextlib.nullcontext()):
+            got = call()
+        torch.cuda.synchronize()
+        after = _head_launches()
+        out.append((got, {k: n - before.get(k, 0) for k, n in after.items()
+                          if n != before.get(k, 0)}))
+    return out
+
+
+def _la_cine(T=50, seed=0):
+    """An LA cine (192, 208, 1, T) int16: two atria in noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(208), np.arange(192))
+    cine = np.zeros((192, 208, 1, T), np.float32)
+    for t in range(T):
+        r = 22 * (1 + 0.3 * np.sin(2 * np.pi * t / T))
+        img = 750.0 * (((xx - 80) ** 2 + (yy - 104) ** 2) < r * r)
+        img += 650.0 * (((xx - 130) ** 2 + (yy - 104) ** 2) < (0.8 * r) ** 2)
+        cine[..., 0, t] = img + 50.0 * rng.randn(192, 208)
+    return np.round(np.clip(cine, 0, 1000)).astype(np.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bundle, n_class", [("FCN_sa.npz", 4),
+                                             ("FCN_la_2ch.npz", 2),
+                                             ("FCN_la_4ch.npz", 3),
+                                             ("FCN_la_4ch_seg4.npz", 6)])
+def test_graphed_dispatch_is_bitwise_the_eager_route(card, bundle, n_class):
+    """The SA dispatch (a (192, 208, 10, 20) cine: chunks of 64, the last
+    padded) and an LA cine per class count (192, 208, 1, 50): prep, chunk
+    forward and pack replayed against the eager route, labels bitwise;
+    each call counts the head launches that ran."""
+    eng = InferenceEngine(load_segmentation_model(
+        os.path.join(WEIGHTS, bundle), card))
+    cine = _sax_cine(192, 208, 10, 20) if n_class == 4 else _la_cine()
+    runs = _routes(lambda: eng.segment_sequence_dispatch(cine).result())
+    (want, n_eager), *graphed = runs
+    n_chunks = -(-cine.shape[2] * cine.shape[3] // eng._chunk(
+        cine.shape[2] * cine.shape[3]))
+    assert n_eager == {n_class: n_chunks * eng.model.head.n_level}
+    for got, n in graphed:
+        assert np.array_equal(got, want) and n == n_eager
+    assert want.max() > 0
+    progs = eng.programs()
+    assert sorted(p.key[0][0] for p in progs) == ["chunk-forward", "pack",
+                                                   "prep"]
+    # the first graphed call runs each program once and captures it
+    for p in progs:
+        calls = 2 * (n_chunks if p.key[0][0] == "chunk-forward" else 1)
+        assert p.graph is not None and p.replays == calls - 1
+
+
+@pytest.mark.cuda
+def test_graphed_aortic_dispatch_is_bitwise_the_eager_route(card):
+    """The trained UNet-LSTM's dispatch on a (120, 98, 1, 12) cine (the
+    U-Net over every frame and the ConvLSTM's 2 x 12 steps in one graph)
+    and ``pred_sequence`` through the same full-sequence program: labels
+    bitwise the eager route's."""
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import (AO_SIZE,
+                                                        load_aortic_engine)
+
+    eng = load_aortic_engine(os.path.join(WEIGHTS, "UNet-LSTM_ao.npz"), card)
+    cine = _ao_cine(120, 98, 12)
+    (want, _), *graphed = _routes(
+        lambda: eng.segment_cine_dispatch(cine).result())
+    for got, _ in graphed:
+        assert np.array_equal(got, want)
+    assert want.max() == 2
+    padded = np.random.RandomState(1).randn(AO_SIZE, AO_SIZE, 1, 12).astype(
+        np.float32)
+    (want, _), *graphed = _routes(lambda: eng.pred_sequence(padded))
+    assert all(np.array_equal(got, want) for got, _ in graphed)
+    full = [p for p in eng.programs() if p.key[0][0] == "full-prob"]
+    assert len(full) == 1 and full[0].replays == 3
+
+
+@pytest.mark.cuda
+def test_graphed_sampling_is_bitwise_the_eager_route(card):
+    """The strain's point sampling and warp-Dice (3 slices x 50 frames at
+    the SA bucket 96^2, 256 points) replayed against the eager route, at
+    two valid regions through one warp-Dice program."""
+    rng = np.random.RandomState(4)
+    fields = torch.from_numpy(2 * rng.randn(3, 50, 96, 96, 2).astype(
+        np.float32)).to(card)
+    pts = torch.from_numpy(rng.uniform(0, 95, (3, 256, 2)).astype(
+        np.float32)).to(card)
+    seg = torch.from_numpy(rng.randint(0, 3, (3, 50, 96, 96)).astype(
+        np.int32)).to(card)
+    programs.clear()
+    with torch.no_grad():
+        for xv, yv in ((93, 90), (94, 93)):
+            (want, _), *graphed = _routes(lambda: (
+                tstrain.sample_points(fields, pts),
+                tstrain.warp_dice(seg, fields, xv, yv)))
+            for got, _ in graphed:
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sorted(p.key[0][0] for p in programs.programs()) == [
+        "sample-points", "warp-dice"]
+
+
+@pytest.mark.cuda
+def test_graphed_engines_read_their_own_weights(card):
+    """Two engines with different weights on one shape: each engine's
+    programs hold its own weights, and each gives its own eager route's
+    labels."""
+    engines = [InferenceEngine(SegmentationModel.from_fcn(
+        _random_fcn(4, seed=s), card), chunk=16) for s in (5, 6)]
+    cine = (np.random.RandomState(3).rand(64, 80, 3, 10) * 1000).astype(
+        np.int16)
+    want = []
+    for eng in engines:
+        with programs._eager_route():
+            want.append(eng.segment_sequence_dispatch(cine).result())
+    assert not np.array_equal(want[0], want[1])
+    for _ in range(2):
+        for eng, w in zip(engines, want):
+            assert np.array_equal(eng.segment_sequence_dispatch(cine)
+                                  .result(), w)
+    ids = [{id(p) for p in eng.programs()} for eng in engines]
+    assert len(ids[0]) == 3 and not ids[0] & ids[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capture_inside", [True, False])
+def test_graphed_chunk_forward_in_and_out_of_inference_mode(card,
+                                                            capture_inside):
+    """A chunk-forward program captured inside ``torch.inference_mode``
+    replays from outside it, and one captured outside replays from
+    inside: labels bitwise the eager route's."""
+    eng = InferenceEngine(SegmentationModel.from_fcn(_random_fcn(4), card),
+                          chunk=16)
+    x = torch.from_numpy(np.random.RandomState(7).rand(
+        32, 64, 80, 1).astype(np.float32)).to(card)
+    with programs._eager_route():
+        (want,) = eng._labels(x, 16)
+    modes = [True, False] if capture_inside else [False, True]
+    for inside in modes + modes:
+        with torch.inference_mode(inside):
+            (got,) = eng._labels(x, 16)
+        assert torch.equal(got, want)
+    (prog,) = eng.programs()
+    assert prog.replays == 2 * len(modes + modes) - 1   # 2 chunks a call
+
+
+@pytest.mark.cuda
+def test_graphed_engine_under_threads(card):
+    """Three threads dispatch through one engine at once (the cohort's
+    workers), on the default stream and on streams of their own: each
+    gets the eager route's labels bitwise."""
+    eng = InferenceEngine(load_segmentation_model(
+        os.path.join(WEIGHTS, "FCN_la_4ch.npz"), card))
+    cines = [_la_cine(seed=s) for s in range(3)]
+    with programs._eager_route():
+        want = [eng.segment_sequence_dispatch(c).result() for c in cines]
+    got = [None] * 3
+
+    def worker(i, own_stream):
+        with torch.cuda.stream(torch.cuda.Stream() if own_stream
+                               else torch.cuda.current_stream()):
+            for _ in range(2):
+                got[i] = eng.segment_sequence_dispatch(cines[i]).result()
+
+    for own_stream in (False, True):
+        threads = [threading.Thread(target=worker, args=(i, own_stream))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+_FAILED_ENGINE_CAPTURE = """
+import numpy as np
+import torch
+from ukbb_cardiac_tpu_torch.infer import engine as engine_mod
+from ukbb_cardiac_tpu_torch.infer.deploy import load_segmentation_model
+
+forward = engine_mod._chunk_forward
+
+def syncs(model, want_prob, images):
+    # a host read of a device value: refused inside a capture
+    if float(images.sum()) < 0:
+        images = -images
+    return forward(model, want_prob, images)
+
+engine_mod._chunk_forward = syncs
+eng = engine_mod.InferenceEngine(load_segmentation_model(
+    "tests/fixtures/bench_weights/FCN_la_2ch.npz", "cuda"))
+cine = (np.random.RandomState(0).rand(96, 96, 1, 8) * 900).astype(np.int16)
+try:
+    eng.segment_sequence_dispatch(cine).result()
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+else:
+    print("no error")
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_engine_capture_raises(card):
+    """An engine's chunk forward that reads a device value on the host
+    cannot be captured: the dispatch raises, and nothing falls back to the
+    eager route (in a process of its own, as above)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _FAILED_ENGINE_CAPTURE],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:"), out.stdout
+
+
+@pytest.mark.cuda
+def test_graphed_engine_programs_bounded_and_released(card):
+    """Cines of four shapes through an engine bounded to half of what an
+    unbounded engine's programs reserve: the least recently used are
+    dropped (the cache stays under its bound), every shape's labels stay
+    bitwise the eager route's, recaptured after a drop too, and
+    ``release_programs`` hands the graphs' pools back to the card."""
+    model = SegmentationModel.from_fcn(_random_fcn(4, seed=8), card)
+    shapes = [(64, 80, 3, 10), (64, 80, 4, 10), (72, 96, 3, 10),
+              (64, 80, 3, 12)]
+    cines = [(np.random.RandomState(i).rand(*s) * 1000).astype(np.int16)
+             for i, s in enumerate(shapes)]
+    free = InferenceEngine(model, chunk=16)
+    free._programs.max_bytes = None
+    with programs._eager_route():
+        want = [free.segment_sequence_dispatch(c).result() for c in cines]
+    for c in cines:
+        free.segment_sequence_dispatch(c).result()
+    bound = free._programs.nbytes() // 2
+    assert bound > 0
+    free.release_programs()
+    eng = InferenceEngine(model, chunk=16)
+    eng._programs.max_bytes = bound
+    for _ in range(2):
+        for c, w in zip(cines, want):
+            assert np.array_equal(eng.segment_sequence_dispatch(c).result(),
+                                  w)
+            assert (eng._programs.nbytes() <= bound
+                    or len(eng.programs()) == 1)
+    assert eng._programs.dropped > 0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(card)
+    eng.release_programs()
+    assert eng.programs() == []
+    assert torch.cuda.memory_reserved(card) < before

@@ -93,6 +93,7 @@ def main(argv=None):
         return InferenceEngine(load_segmentation_model(path, device, dtype))
 
     engine = slice_engine(args.model_path)
+    engines = {"sa": engine}
     common = dict(workers=args.workers, eval_dice=args.eval_dice,
                   output_dir=args.output_dir,
                   skip_existing_seg=not args.force,
@@ -100,7 +101,6 @@ def main(argv=None):
                   mesh=mesh, device=device)
     if any((args.model_path_la_2ch, args.model_path_la_4ch,
             args.model_path_seg4, args.model_path_ao)):
-        engines = {"sa": engine}
         for key, path in (("la_2ch", args.model_path_la_2ch),
                           ("la_4ch", args.model_path_la_4ch),
                           ("seg4", args.model_path_seg4)):
@@ -120,6 +120,9 @@ def main(argv=None):
                                  **common)
     else:
         result = run_cohort_sa(args.data_dir, engine, **common)
+    # the engines go with this run: their graphs' pools go back now
+    for eng in engines.values():
+        eng.release_programs()
     n_ok = len(result.fleet.succeeded)
     print(f"cohort: {n_ok} succeeded, {len(result.fleet.failed)} failed, "
           f"{len(result.fleet.skipped)} skipped in "

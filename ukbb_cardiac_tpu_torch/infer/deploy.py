@@ -224,4 +224,6 @@ def deploy_dataset(model_path: str, data_dir: str, seq_name: str = "sa",
         print("Including image I/O, it took {0:.3f}s for processing {1:d} "
               "subjects ({2:.3f}s per subjects).".format(
                   total, len(processed), total / max(len(processed), 1)))
+    # the engine goes with this call: its graphs' pools go back now
+    engine.release_programs()
     return records

@@ -20,11 +20,20 @@ Window modes, as in the JAX package:
   (:meth:`AorticEngine.segment_cine_dispatch`).
 - ``window='compat'``: the reference's sliding-window blending, windows
   on the device and blending on the host.
+
+On the card the engine's programs are CUDA graphs captured at a shape's
+first call and replayed after (``reg/programs.py``), in a cache the
+engine owns, as the JAX engine's ``self._compiled``: the full-sequence
+model (``_lstm_full`` / ``_temporal_unet``: the U-Net over every frame,
+then the ConvLSTM's 2 x T steps, the counterpart of its ``lax.scan``, and
+the softmax) keyed by the sequence's shape, and the dispatch's normalise
++ pad and argmax + crop + pack around it (the rest of ``_subject_fn``).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import time
 import warnings
@@ -52,6 +61,7 @@ from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity,
                                                   rescale_intensity_torch)
 from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
                                                   map_shards, split_leading)
+from ukbb_cardiac_tpu_torch.reg import programs
 
 AO_SIZE = 256  # fixed aortic grid (deploy_network_ao.py:105)
 KINDS = ("unet_lstm", "temporal_unet", "unet")
@@ -69,11 +79,50 @@ def window_weights(weight_R: int, weight_r: float) -> np.ndarray:
     return np.asarray(w, dtype=np.float32)
 
 
+def _sequence_prob(kind: str, net: torch.nn.Module, dtype,
+                   seq: torch.Tensor):
+    """The JAX engine's ``_lstm_full`` / ``_temporal_unet``: (Z, T, X, Y)
+    normalised frames -> (softmax probabilities (Z, T, n_class, X, Y)
+    float32,) of the UNet-LSTM or the temporal U-Net over the whole
+    sequence."""
+    x = seq.to(dtype)
+    if kind == "temporal_unet":
+        logits = net(x[:, None])[0].transpose(1, 2)
+    else:
+        logits = net(x[:, :, None])
+    return (torch.softmax(logits, dim=2),)
+
+
+def _subject_prep(z_score: bool, pads, raw: torch.Tensor):
+    """The head of the JAX engine's ``_subject_fn``: the uploaded (T, Z,
+    Y, X) cine in its own dtype -> (z-scored or percentile-rescaled
+    frames, centred-padded, (Z, T, X', Y') float32,)."""
+    x_pre, x_post, y_pre, y_post = pads
+    x = (normalise_intensity_torch(raw, 10.0) if z_score
+         else rescale_intensity_torch(raw, (1.0, 99.0)))
+    return (F.pad(x.permute(1, 0, 3, 2), (y_pre, y_post, x_pre, x_post)),)
+
+
+def _subject_pack(shape, pads, bits: int, prob: torch.Tensor):
+    """The tail of ``_subject_fn`` and the dispatch's packing: (Z, T,
+    n_class, X', Y') probabilities -> the (X, Y, Z, T) cine's argmax
+    labels, cropped and packed ``bits`` to a field."""
+    X, Y = shape
+    x_pre, _, y_pre, _ = pads
+    pred = torch.argmax(prob, dim=2).to(torch.uint8)
+    pred = pred[:, :, x_pre:x_pre + X, y_pre:y_pre + Y]
+    return (pack_bits(pred.permute(2, 3, 0, 1).reshape(-1), bits),)
+
+
 class AorticEngine:
     """Runs an aortic model on one device: ``kind`` ``'unet_lstm'``
     (``net`` a :class:`UNetLSTM`), ``'temporal_unet'`` (a 3D
     :class:`UNet`) or ``'unet'`` (a 2D :class:`UNet`, per frame).
 
+    The engine owns its programs (:class:`~ukbb_cardiac_tpu_torch.reg.
+    programs.ProgramCache`), over its own network's weights, bounded by
+    ``reg.programs.ENGINE_BYTES`` (the least recently used dropped
+    first); :meth:`release_programs` lets them go at once.
     :meth:`segment_subjects_sharded` splits whole subjects over a mesh,
     each shard through :meth:`segment_cine_dispatch` of a replica on its
     device (:meth:`replica`)."""
@@ -91,30 +140,46 @@ class AorticEngine:
         # the adaptive packed up-leg (infer/transfer.py)
         self._bw = transfer.BandwidthTracker()
         self._stats = transfer.TransferStats()
-        self._replicas = {str(canonical_device(self.device)): self}
+        # this engine's programs; nothing in them refers back to the
+        # engine, so they go with it
+        self._programs = programs.ProgramCache(
+            max_bytes=programs.ENGINE_BYTES)
+        self._replicas = {}
 
     def replica(self, device) -> "AorticEngine":
         """The engine on ``device``: this one, or a copy of its network
-        there (made at first use and kept)."""
+        there (made at first use and kept, with programs of its own)."""
         key = str(canonical_device(device))
+        if key == str(canonical_device(self.device)):
+            return self
         if key not in self._replicas:
             self._replicas[key] = AorticEngine(
                 self.kind, copy.deepcopy(self.net), device,
                 self.compute_dtype)
         return self._replicas[key]
 
+    def programs(self):
+        """This engine's captured programs, least recently used first."""
+        return self._programs.programs()
+
+    def release_programs(self) -> None:
+        """Drop this engine's programs (its replicas' and its slice
+        engine's too) and return their graphs' memory to the card."""
+        for eng in (*self._replicas.values(), self._unet_engine):
+            if eng is not None:
+                eng.release_programs()
+        self._programs.clear()
+
     @torch.inference_mode()
     def _full_prob(self, seq: torch.Tensor) -> torch.Tensor:
         """(Z, T, X, Y) normalised frames -> softmax probabilities
-        (Z, T, n_class, X, Y) float32 of the UNet-LSTM or the temporal
-        U-Net over the whole sequence (the JAX engine's ``_lstm_full`` /
-        ``_temporal_unet``)."""
-        x = seq.to(self.compute_dtype)
-        if self.kind == "temporal_unet":
-            logits = self.net(x[:, None])[0].transpose(1, 2)
-        else:
-            logits = self.net(x[:, :, None])
-        return torch.softmax(logits, dim=2)
+        (Z, T, n_class, X, Y) float32 of the whole sequence, through this
+        engine's program of the sequence's shape."""
+        (prob,) = self._programs.run(
+            ("full-prob",), functools.partial(
+                _sequence_prob, self.kind, self.net, self.compute_dtype),
+            seq)
+        return prob
 
     @torch.inference_mode()
     def segment_cine_dispatch(self, image: np.ndarray, z_score: bool = True,
@@ -134,7 +199,7 @@ class AorticEngine:
                 f"aortic cine {X}x{Y} exceeds the {pad_to}x{pad_to} grid "
                 f"(deploy_network_ao.py:104-108 pads to a fixed size); "
                 f"pass a larger pad_to")
-        x_pre, x_post, y_pre, y_post = pad_to_size(X, Y, pad_to)
+        pads = pad_to_size(X, Y, pad_to)
         bits = 2 if self.n_class <= 4 else (4 if self.n_class <= 16 else 8)
         on_card = self.device.type == "cuda"
         events = None
@@ -143,16 +208,17 @@ class AorticEngine:
                       torch.cuda.Event(enable_timing=True))
         # (T, Z, Y, X) in the file's own type: raw, or packed while the
         # link counts as degraded and rebuilt exactly (infer/transfer.py);
-        # the device span starts at its upload
+        # the device span starts at its upload, outside the programs
         raw = transfer.upload_cine(image, self.device, self._bw,
                                    self._stats,
                                    start=events[0] if on_card else None)
-        x = (normalise_intensity_torch(raw, 10.0) if z_score
-             else rescale_intensity_torch(raw, (1.0, 99.0)))
-        seq = F.pad(x.permute(1, 0, 3, 2), (y_pre, y_post, x_pre, x_post))
-        pred = torch.argmax(self._full_prob(seq), dim=2).to(torch.uint8)
-        pred = pred[:, :, x_pre:x_pre + X, y_pre:y_pre + Y]
-        packed = pack_bits(pred.permute(2, 3, 0, 1).reshape(-1), bits)
+        (seq,) = self._programs.run(
+            ("subject-prep", z_score, pad_to),
+            functools.partial(_subject_prep, z_score, pads), raw)
+        (packed,) = self._programs.run(
+            ("subject-pack", X, Y),
+            functools.partial(_subject_pack, (X, Y), pads, bits),
+            self._full_prob(seq))
         if on_card:
             host = torch.empty(packed.shape, dtype=torch.uint8,
                                pin_memory=True)
@@ -458,4 +524,6 @@ def deploy_dataset_ao(model_path: str, data_dir: str, seq_name: str = "ao",
         print("It took {0:.3f}s for processing {1:d} subjects "
               "({2:.3f}s per subjects).".format(total, len(processed),
                                                 total / len(processed)))
+    # the engine goes with this call: its graphs' pools go back now
+    engine.release_programs()
     return records

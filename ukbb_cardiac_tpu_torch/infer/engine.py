@@ -4,11 +4,17 @@ Counterpart of ``ukbb_cardiac_tpu/infer/engine.py``.  A whole cine's Z*T
 slices go through the network in chunks on the device, and only
 2-bit-packed labels come back to the host:
 
-  raw cine -> percentile rescale (device) -> centred pad to a multiple of
-  16 -> (T, Z) frame-major slices -> chunked FCN forward with the fused
-  CUDA head -> uint8 argmax -> crop -> bit pack (low field first) ->
-  non-blocking copy into pinned host memory.
+  raw cine upload -> prep (percentile rescale, centred pad to a multiple
+  of 16, (T, Z) frame-major slices padded to whole chunks) -> per chunk,
+  the chunk forward (FCN encoder, fused CUDA head, uint8 argmax) -> pack
+  (crop, bit pack, low field first) -> non-blocking copy into pinned
+  host memory.
 
+On the card prep, the chunk forward and pack are the JAX engine's three
+programs (``_cine_fns``' ``prep`` and ``pack``, and ``_fn``, keyed by the
+padded chunk shape so that cines whose Z/T differ share it): CUDA graphs
+captured at a shape's first call and replayed after
+(``reg/programs.py``), in a cache the engine owns, over its own weights.
 :meth:`InferenceEngine.segment_sequence_dispatch` returns as soon as that
 work is queued; :meth:`PendingSegmentation.result` waits for it and
 unpacks.  The cine goes up raw, or packed into one uint8 buffer while
@@ -29,6 +35,7 @@ probabilities on request (``want_prob``).
 from __future__ import annotations
 
 import copy
+import functools
 import time
 from dataclasses import dataclass
 
@@ -49,6 +56,7 @@ from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity_torch,
 from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
                                                   cycle_to_multiple,
                                                   map_shards, split_leading)
+from ukbb_cardiac_tpu_torch.reg import programs
 
 
 def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
@@ -88,7 +96,10 @@ class SegmentationModel:
     ResNet-FCN) and its folded head weights, or a 2D U-Net (``head``
     None).
     :meth:`forward` maps (N, X, Y, C) images to channels-first float32
-    logits (N, n_class, X, Y)."""
+    logits (N, n_class, X, Y), eagerly: the trainer's validation refolds
+    the head after every update, which a captured graph would not see
+    (the engines' programs capture it, over weights that do not
+    change)."""
 
     net: FCN | UNet
     head: HeadWeights | None
@@ -188,6 +199,47 @@ def pad_to_factor(X: int, Y: int, factor: int = 16):
 _HOST_DTYPES = (np.float32, np.int16, np.uint8, np.int8, np.int32)
 
 
+def _chunk_forward(model: SegmentationModel, want_prob: bool,
+                   images: torch.Tensor):
+    """The JAX engine's ``_fn``: one chunk of (chunk, X, Y, C) padded
+    slices -> (uint8 argmax labels (chunk, X, Y),) and, with
+    ``want_prob``, the softmax probabilities (chunk, X, Y, n_class)."""
+    logits = model.forward(images)
+    pred = torch.argmax(logits, dim=1).to(torch.uint8)
+    if want_prob:
+        return pred, torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+    return (pred,)
+
+
+def _prep_cine(rescale: str, pads, n_pad: int, cine: torch.Tensor):
+    """The JAX engine's ``prep``: the uploaded (T, Z, Y, X) cine in its own
+    dtype -> rescaled (``'percentile'``, ``'zscore'`` or ``'none'``),
+    centred-padded (T*Z + ``n_pad``, X', Y', 1) float32 slices, frame
+    major, the last ``n_pad`` zero so that the chunks are whole."""
+    if rescale == "percentile":
+        cine = rescale_intensity_torch(cine, (1.0, 99.0))
+    elif rescale == "zscore":
+        cine = normalise_intensity_torch(cine)
+    else:
+        cine = cine.float()
+    T, Z, Y, X = cine.shape
+    x_pre, x_post, y_pre, y_post = pads
+    slices = cine.transpose(2, 3).reshape(T * Z, X, Y)
+    slices = F.pad(slices, (y_pre, y_post, x_pre, x_post, 0, n_pad))
+    return (slices[..., None],)
+
+
+def _pack_cine(shape, pads, bits: int, preds: torch.Tensor):
+    """The JAX engine's ``pack``: padded (n, X', Y') labels, frame major
+    -> the (X, Y, Z, T) cine's labels cropped and packed ``bits`` to a
+    field."""
+    X, Y, Z, T = shape
+    x_pre, _, y_pre, _ = pads
+    seg = preds[:T * Z, x_pre:x_pre + X, y_pre:y_pre + Y]
+    seg = seg.reshape(T, Z, X, Y).permute(2, 3, 1, 0).reshape(-1)
+    return (pack_bits(seg, bits),)
+
+
 class InferenceEngine:
     """Chunked slice segmentation on the model's device.
 
@@ -195,11 +247,22 @@ class InferenceEngine:
     a 192x208 chunk near 1 GB in float32).  ``pad_factor``: spatial
     padding multiple (16 = the FCN's 2^(n_level-1)).
 
+    The engine owns its programs (the JAX engine's ``self._compiled``):
+    the chunk forward keyed by the padded chunk shape and ``want_prob``,
+    the dispatch's prep keyed by the cine's shape, dtype and rescale mode
+    and its pack by the cine's shape, each a CUDA graph over this
+    engine's weights on the card (``reg/programs.py``; the last chunk is
+    padded up to a whole one, as the JAX engine pads it).  Each graph
+    keeps a memory pool (a (192, 208, 10, 50) cine's prep and pack 0.86
+    GiB on an NVIDIA H100 80GB HBM3, 700.00 W), so the programs are
+    bounded by ``reg.programs.ENGINE_BYTES``, the least recently used
+    dropped first; :meth:`release_programs` lets them go at once.
+
     The sharded paths (:meth:`make_sharded_forward`,
     :meth:`segment_subjects_sharded`) split their batch over a
     :class:`~ukbb_cardiac_tpu_torch.parallel.mesh.Mesh` and run each shard
     through this engine's own path on a replica on the shard's device
-    (:meth:`replica`; replicas on one device share its weights), so their
+    (:meth:`replica`; on this engine's device, this engine), so their
     labels are those of :meth:`run_slices` and
     :meth:`segment_sequence_fused`.
     """
@@ -213,34 +276,54 @@ class InferenceEngine:
         # the adaptive packed up-leg (infer/transfer.py)
         self._bw = transfer.BandwidthTracker()
         self._stats = transfer.TransferStats()
-        self._replicas = {str(self.device): self}
+        # this engine's programs; nothing in them refers back to the
+        # engine, so they go with it
+        self._programs = programs.ProgramCache(
+            max_bytes=programs.ENGINE_BYTES)
+        self._replicas = {}
 
     def replica(self, device) -> "InferenceEngine":
         """The engine on ``device``: this one, or a copy of its model there
-        (made at first use and kept)."""
+        (made at first use and kept, with programs of its own)."""
         key = str(canonical_device(device))
+        if key == str(canonical_device(self.device)):
+            return self
         if key not in self._replicas:
             self._replicas[key] = InferenceEngine(
                 self.model.to(device), self.chunk, self.pad_factor)
         return self._replicas[key]
 
+    def programs(self):
+        """This engine's captured programs, least recently used first."""
+        return self._programs.programs()
+
+    def release_programs(self) -> None:
+        """Drop this engine's programs and its replicas', and return their
+        graphs' memory to the card (the caller that built the engine for
+        one run, when the run ends); later calls capture again."""
+        for rep in self._replicas.values():
+            rep.release_programs()
+        self._programs.clear()
+
     def _pack_bits(self) -> int:
         n = self.model.n_class
         return 2 if n <= 4 else (4 if n <= 16 else 8)
 
-    def _labels(self, x: torch.Tensor, chunk: int,
-                probs: torch.Tensor | None = None) -> torch.Tensor:
-        """(N, X, Y, C) padded float32 slices -> (N, X, Y) uint8 argmax,
-        ``chunk`` slices per forward; with ``probs`` (N, X, Y, n_class)
-        given, the softmax probabilities are written there too."""
-        preds = torch.empty(x.shape[:3], dtype=torch.uint8, device=x.device)
+    def _labels(self, x: torch.Tensor, chunk: int, want_prob: bool = False):
+        """(N, X, Y, C) padded float32 slices, N a multiple of ``chunk`` ->
+        (N, X, Y) uint8 argmax, one chunk-forward program per chunk, each
+        writing its slice of the outputs; with ``want_prob`` also the
+        softmax probabilities (N, X, Y, n_class)."""
+        fn = functools.partial(_chunk_forward, self.model, want_prob)
+        outs = (torch.empty(x.shape[:3], dtype=torch.uint8, device=x.device),)
+        if want_prob:
+            outs += (torch.empty(x.shape[:3] + (self.model.n_class,),
+                                 device=x.device),)
         for i in range(0, x.shape[0], chunk):
-            logits = self.model.forward(x[i:i + chunk])
-            preds[i:i + chunk] = torch.argmax(logits, dim=1)
-            if probs is not None:
-                probs[i:i + chunk] = torch.softmax(logits, dim=1).permute(
-                    0, 2, 3, 1)
-        return preds
+            self._programs.run(("chunk-forward", want_prob), fn,
+                               x[i:i + chunk],
+                               out=[o[i:i + chunk] for o in outs])
+        return outs
 
     @torch.inference_mode()
     def run_slices(self, slices: np.ndarray, want_prob: bool = False):
@@ -251,19 +334,22 @@ class InferenceEngine:
         slices = np.asarray(slices, dtype=np.float32)
         if slices.ndim == 3:
             slices = slices[..., None]
-        X, Y = slices.shape[1:3]
+        N, X, Y = slices.shape[:3]
         x_pre, x_post, y_pre, y_post = pad_to_multiple(X, Y, self.pad_factor)
+        chunk = self._chunk(N)
         x = torch.from_numpy(np.ascontiguousarray(slices)).to(self.device)
-        x = F.pad(x, (0, 0, y_pre, y_post, x_pre, x_post))
-        probs = (x.new_empty(x.shape[:3] + (self.model.n_class,))
-                 if want_prob else None)
-        pred = self._labels(x, self.chunk, probs)
-        window = (slice(None), slice(x_pre, x_pre + X),
+        x = F.pad(x, (0, 0, y_pre, y_post, x_pre, x_post, 0, -N % chunk))
+        window = (slice(0, N), slice(x_pre, x_pre + X),
                   slice(y_pre, y_pre + Y))
-        pred = pred[window].cpu().numpy()
-        if want_prob:
-            return pred, probs[window].cpu().numpy()
-        return pred
+        out = [o[window].cpu().numpy()
+               for o in self._labels(x, chunk, want_prob)]
+        return tuple(out) if want_prob else out[0]
+
+    def _chunk(self, n: int) -> int:
+        """Slices per forward for ``n`` slices: ``chunk``, or for fewer
+        the next multiple of 8 (a short cine is not padded up to a whole
+        chunk)."""
+        return min(self.chunk, -(-n // 8) * 8)
 
     def segment_sequence(self, image: np.ndarray, want_prob: bool = False):
         """Segment a 4D cine (X, Y, Z, T) of normalised intensities in one
@@ -317,9 +403,8 @@ class InferenceEngine:
             image = image.astype(np.float32)
         X, Y, Z, T = image.shape
         N = T * Z
-        x_pre, x_post, y_pre, y_post = pad_to_multiple(X, Y, self.pad_factor)
-        # a short cine is not padded up to a whole chunk
-        chunk = min(self.chunk, -(-N // 8) * 8)
+        pads = pad_to_multiple(X, Y, self.pad_factor)
+        chunk = self._chunk(N)
         bits = self._pack_bits()
         on_card = self.device.type == "cuda"
         events = None
@@ -329,22 +414,18 @@ class InferenceEngine:
 
         # (T, Z, Y, X): the contiguous view of a Fortran-ordered NIfTI
         # cine, raw or rebuilt from the packed buffer; the device span
-        # starts at its upload
+        # starts at its upload, which stays outside the programs (a
+        # pageable copy, and the bandwidth sample)
         cine = transfer.upload_cine(image, self.device, self._bw,
                                     self._stats,
                                     start=events[0] if on_card else None)
-        if rescale == "percentile":
-            cine = rescale_intensity_torch(cine, (1.0, 99.0))
-        elif rescale == "zscore":
-            cine = normalise_intensity_torch(cine)
-        else:
-            cine = cine.float()
-        slices = cine.transpose(2, 3).reshape(N, X, Y)
-        slices = F.pad(slices, (y_pre, y_post, x_pre, x_post))
-        preds = self._labels(slices[..., None], chunk)
-        seg = preds[:, x_pre:x_pre + X, y_pre:y_pre + Y]
-        seg = seg.reshape(T, Z, X, Y).permute(2, 3, 1, 0).reshape(-1)
-        packed = pack_bits(seg, bits)
+        (slices,) = self._programs.run(
+            ("prep", rescale), functools.partial(_prep_cine, rescale, pads,
+                                                 -N % chunk), cine)
+        (preds,) = self._labels(slices, chunk)
+        (packed,) = self._programs.run(
+            ("pack", X, Y, Z, T),
+            functools.partial(_pack_cine, (X, Y, Z, T), pads, bits), preds)
 
         if on_card:
             host = torch.empty(packed.shape, dtype=torch.uint8,

@@ -9,8 +9,11 @@ channels in gate order (input, new input, forget, output), forget bias
     c' = sigmoid(f + 1) * c + sigmoid(i) * tanh(j);  h' = tanh(c') * sigmoid(o)
 
 ``h`` is cast to the input's dtype before the concat; ``c`` stays float32.
-The JAX package scans the cell with ``lax.scan``; here the scan is a
-Python loop over T, one eager step per frame (per direction).
+The JAX package scans the cell with ``lax.scan``; here :func:`scan_cell`
+is a loop over T, one step per frame (per direction).  The aortic deploy
+captures the whole scan, 2 x T steps, in its full-sequence CUDA graph
+and replays it as one launch (``infer/deploy_ao.py``,
+``reg/programs.py``); the aortic trainer runs the loop eagerly.
 
 NCHW inside: a sequence is (N, T, C, X, Y).  :func:`apply_conv_lstm` and
 :func:`apply_biconv_lstm` take and return the JAX package's (N, T, X, Y, C).

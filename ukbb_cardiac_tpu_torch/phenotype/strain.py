@@ -5,8 +5,9 @@ Counterpart of ``ukbb_cardiac_tpu/phenotype/strain.py`` (reference:
 population of a subject is ONE batched registration on the card
 (``reg.make_register_batch``); densify, inversion, composition and
 blending of the motion fields run there too, as one CUDA graph per
-shape (``reg/programs.py``), and only the contour-point displacements
-and the warp-Dice rows come back to the host:
+shape (``reg/programs.py``), and so do the contour points' sampling and
+the warp-Dice; only the contour-point displacements and the warp-Dice
+rows come back to the host:
 
   pairs (3 slices x T, or 3 x 2(T-1) in both directions)
   →  batched FFD register
@@ -179,10 +180,20 @@ def pair_frames(frames_zs: np.ndarray, inverse_consistent: bool = True):
     return targets, sources
 
 
+# contour points per slice are padded to a multiple of this (the JAX
+# package's _PTS_BUCKET), so that subjects share the sampling program
+_PTS_BUCKET = 128
+
+
 def sample_points(fields: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Bilinear, edge-clamped sampling of (Zsel, T, X, Y, 2) fields at
     (Zsel, N, 2) voxel coordinates → (Zsel, T, N, 2) (the JAX
-    ``_sample_program``)."""
+    ``_sample_program``; on the card a CUDA graph per (Zsel, T, X, Y, N),
+    ``reg/programs.py``)."""
+    return programs.run(("sample-points",), _sample_points, fields, pts)[0]
+
+
+def _sample_points(fields: torch.Tensor, pts: torch.Tensor):
     Zsel, T, X, Y, _ = fields.shape
     x = torch.clamp(pts[..., 0], 0.0, X - 1.0)            # (Zsel, N)
     y = torch.clamp(pts[..., 1], 0.0, Y - 1.0)
@@ -202,7 +213,7 @@ def sample_points(fields: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     f00, f01 = corner(x0i, y0i), corner(x0i, y1i)
     f10, f11 = corner(x1i, y0i), corner(x1i, y1i)
     return (f00 * (1 - fx) * (1 - fy) + f01 * (1 - fx) * fy
-            + f10 * fx * (1 - fy) + f11 * fx * fy)
+            + f10 * fx * (1 - fy) + f11 * fx * fy,)
 
 
 def warp_dice(seg: torch.Tensor, fields: torch.Tensor, xv: int,
@@ -213,13 +224,27 @@ def warp_dice(seg: torch.Tensor, fields: torch.Tensor, xv: int,
     (Zsel, T, X, Y) + fields (Zsel, T, X, Y, 2) → (Zsel, T, 2).  Nearest
     neighbour is ``floor(c + 0.5)``, outside the image reads 0, and warped
     labels outside the valid (pre-bucket-padding) region (xv, yv) are
-    masked to background."""
+    masked to background.
+
+    On the card a CUDA graph per (Zsel, T, X, Y) (``reg/programs.py``):
+    the valid region goes in as a tensor, as the JAX program takes it as
+    runtime scalars, so that subjects whose crops differ by a few pixels
+    share the program; it goes up from pinned memory without waiting for
+    the stream (the registration may still be running)."""
+    region = torch.tensor([xv, yv], dtype=torch.float32)
+    if seg.device.type == "cuda":
+        region = region.pin_memory().to(seg.device, non_blocking=True)
+    return programs.run(("warp-dice",), _warp_dice, seg, fields, region)[0]
+
+
+def _warp_dice(seg: torch.Tensor, fields: torch.Tensor,
+               region: torch.Tensor):
     Zsel, T, X, Y = seg.shape
     gx, gy = torch.meshgrid(
         torch.arange(X, dtype=torch.float32, device=seg.device),
         torch.arange(Y, dtype=torch.float32, device=seg.device),
         indexing="ij")
-    valid = (gx < xv) & (gy < yv)
+    valid = (gx < region[0]) & (gy < region[1])
     xi = torch.floor(gx + fields[..., 0] + 0.5).long()
     yi = torch.floor(gy + fields[..., 1] + 0.5).long()
     inb = (xi >= 0) & (xi < X) & (yi >= 0) & (yi < Y) & valid
@@ -236,7 +261,12 @@ def warp_dice(seg: torch.Tensor, fields: torch.Tensor, xv: int,
         return 2 * torch.sum(a * b, dim=(-2, -1)) / (
             torch.sum(a, dim=(-2, -1)) + torch.sum(b, dim=(-2, -1)))
 
-    return torch.stack([dice(1), dice(2)], dim=-1)
+    return (torch.stack([dice(1), dice(2)], dim=-1),)
+
+
+def bucket_points(n: int) -> int:
+    """``n`` contour points (at least 1) rounded up to the bucket."""
+    return -(-max(n, 1) // _PTS_BUCKET) * _PTS_BUCKET
 
 
 def track_multi_slice_fields(frames_zs: np.ndarray, cfg: RegConfig,
@@ -361,8 +391,8 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
         voxs.append((inv_affine @ np.concatenate(
             [world, np.ones((len(world), 1))], axis=1).T).T[:, :3])
         polys_ED.append(poly)
-    pts = np.zeros((len(selected), max(len(v) for v in voxs), 2),
-                   np.float32)
+    pts = np.zeros((len(selected), bucket_points(max(len(v) for v in voxs)),
+                    2), np.float32)
     for i, v in enumerate(voxs):
         pts[i, :len(v)] = v[:, :2]
     pts_dev = torch.from_numpy(pts).to(dev)

@@ -35,7 +35,9 @@ from ukbb_cardiac_tpu_torch.phenotype.contours import (approximate_contour,
                                                        extract_contour,
                                                        lv_slice_masks)
 from ukbb_cardiac_tpu_torch.parallel.mesh import resolve_device_for
-from ukbb_cardiac_tpu_torch.phenotype.strain import (bucket_hw, sample_points,
+from ukbb_cardiac_tpu_torch.phenotype.strain import (bucket_hw,
+                                                     bucket_points,
+                                                     sample_points,
                                                      track_slice_fields,
                                                      warp_dice)
 from ukbb_cardiac_tpu_torch.reg.register import RegConfig
@@ -313,7 +315,7 @@ def start_la_motion_dispatch(data_dir: str, output_dir: str,
     world = poly_ED.points
     vox = (inv_affine @ np.concatenate(
         [world, np.ones((len(world), 1))], axis=1).T).T[:, :3]
-    pts = np.zeros((1, max(len(vox), 1), 2), np.float32)
+    pts = np.zeros((1, bucket_points(len(vox)), 2), np.float32)
     pts[0, :len(vox)] = vox[:, :2]
     pts_dev = torch.from_numpy(pts).to(dev)
     seg_dev = None

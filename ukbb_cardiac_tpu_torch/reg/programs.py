@@ -1,15 +1,24 @@
-"""The registration path's device programs: CUDA graphs captured once per
-shape and replayed.
+"""The port's device programs: CUDA graphs captured once per shape and
+replayed.
 
-The port's counterpart of the JAX package's cached jitted programs:
-``reg/register.py::make_register_batch`` (``lru_cache``; each level's
-``step_block``, a ``fori_loop`` over all of its Adam steps in one
-dispatch, with ``synth_prev_levels``, ``normalise_pair`` and the pyramid
-blurs), ``phenotype/strain.py::_field_programs`` (densify + invert +
-compose + blend) and ``data/propagate_aortic.py::_dense_program``.
+The port's counterpart of the JAX package's cached jitted programs.  The
+module-level cache (:func:`run`, at most ``MAX_PROGRAMS``, as the JAX
+``lru_cache(maxsize=64)``) holds the data-independent ones:
+``reg/register.py::make_register_batch`` (each level's ``step_block``, a
+``fori_loop`` over all of its Adam steps in one dispatch, with
+``synth_prev_levels``, ``normalise_pair`` and the pyramid blurs),
+``phenotype/strain.py::_field_programs`` (densify + invert + compose +
+blend), ``_sample_program`` and ``_warp_dice_program``, and
+``data/propagate_aortic.py::_dense_program``.  A :class:`ProgramCache`
+that an owner holds keeps the programs over that owner's weights, as the
+JAX engines' ``self._compiled`` dicts do: each deploy engine has one
+(``infer/engine.py``, ``infer/deploy_ao.py``), so an engine's graphs
+read its own parameters, and an engine's programs never evict the
+registration's.
 
-:func:`run` takes a function of tensors that returns a tuple of tensors,
-and a tag that names what the function computes.  On CUDA tensors the
+:meth:`ProgramCache.run` takes a function of tensors that returns a
+tuple of tensors, and a tag that names what the function computes.  On
+CUDA tensors the
 first call of a key -- the tag, the device and every input's shape and
 dtype -- runs the function as it is (the warm-up: its result is the
 call's, its kernels launch and count as they would eagerly), then
@@ -41,11 +50,21 @@ to the wrappers' counters.  The warm-up counts as an eager run.  So a
 call counts the launches that executed on the card, the first call of a
 key included.
 
+Inference mode: the static inputs are made outside
+``torch.inference_mode``, so a program captured inside it (the engines'
+methods run there) copies in from outside it too, and the other way
+round.
+
 Memory: each program keeps the static inputs and a private memory pool
 for the graph (``reserved``: the growth of
-``torch.cuda.memory_reserved`` over the capture).  At most
-``MAX_PROGRAMS`` are kept, the least recently used dropped first, as the
-JAX ``lru_cache(maxsize=64)`` does.
+``torch.cuda.memory_reserved`` over the capture).  A cache may bound its
+programs by count and by the sum of their ``reserved``, the least
+recently used dropped first (never the one just run).  The caching
+allocator keeps a dropped graph's pool, and cannot free anything while
+a capture is underway, so a pool would stay reserved until the cache is
+emptied: a cache that drops programs (its bound, :meth:`ProgramCache.
+clear`) empties it then, between captures.  An owner that lets its
+cache go (an engine built for one run) clears it first.
 """
 
 from __future__ import annotations
@@ -54,16 +73,18 @@ import contextlib
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ukbb_cardiac_tpu_torch import kernels
 
 MAX_PROGRAMS = 64
+# an engine's programs, the least recently used dropped beyond: room for
+# every program of one shape (the aortic engine's 4.71 GiB at (240, 196,
+# 1, 100), chip_smoke.py phase 14, NVIDIA H100 80GB HBM3, 700.00 W)
+ENGINE_BYTES = 8 * 2 ** 30
 
-_PROGRAMS: "OrderedDict[tuple, Program]" = OrderedDict()
-_CACHE_LOCK = threading.Lock()
 _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: Dict[str, torch.cuda.Stream] = {}
 _ROUTE = threading.local()
@@ -86,26 +107,32 @@ class Program:
         self.reserved = 0         # bytes memory_reserved grew by
         self.replays = 0
 
-    def __call__(self, *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def __call__(self, *inputs: torch.Tensor,
+                 out: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, ...]:
         with self.lock, torch.cuda.device(inputs[0].device):
             if self.graph is None:
-                out = self.fn(*inputs)
+                result = _written(self.fn(*inputs), out)
                 self._capture(inputs)
-                return out
+                return result
             stream = torch.cuda.current_stream()
             stream.wait_event(self.done)
             for buf, x in zip(self.static_in, inputs):
                 buf.copy_(x)
             self.graph.replay()
-            out = tuple(o.clone() for o in self.static_out)
+            if out is None:
+                result = tuple(o.clone() for o in self.static_out)
+            else:
+                result = _written(self.static_out, out)
             self.done.record(stream)
             self.replays += 1
         self.launches.replayed()
-        return out
+        return result
 
     def _capture(self, inputs) -> None:
         dev = inputs[0].device
-        static_in = [torch.empty_like(x) for x in inputs]
+        with torch.inference_mode(False):
+            static_in = [torch.empty_like(x) for x in inputs]
         graph = torch.cuda.CUDAGraph()
         record = kernels.LaunchRecord()
         with _CAPTURE_LOCK:
@@ -132,6 +159,16 @@ class Program:
         self.graph = graph
 
 
+def _written(result, out) -> Tuple[torch.Tensor, ...]:
+    """``result`` as a tuple, or copied into the tensors ``out`` (and
+    those returned)."""
+    if out is None:
+        return tuple(result)
+    for o, r in zip(out, result):
+        o.copy_(r)
+    return tuple(out)
+
+
 def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
     key = str(dev)
     if key not in _CAPTURE_STREAMS:
@@ -139,40 +176,124 @@ def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[key]
 
 
+class ProgramCache:
+    """Programs keyed by (tag, device, every input's shape and dtype), the
+    least recently used dropped first beyond ``max_programs`` programs or
+    ``max_bytes`` of their ``reserved`` (None: no bound)."""
+
+    def __init__(self, max_programs: Optional[int] = None,
+                 max_bytes: Optional[int] = None):
+        self.max_programs = max_programs
+        self.max_bytes = max_bytes
+        self._programs: "OrderedDict[tuple, Program]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.dropped = 0          # programs the bounds dropped
+
+    def run(self, tag: tuple, fn: Callable[..., Tuple[torch.Tensor, ...]],
+            *inputs: torch.Tensor,
+            out: Optional[Sequence[torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, ...]:
+        """``fn(*inputs)``, a tuple of tensors: on CUDA tensors through
+        the program of (``tag``, device, the inputs' shapes and dtypes),
+        captured at its first call and replayed after; as it is on CPU
+        tensors and on the eager route.  ``tag`` names everything ``fn``
+        computes that the inputs' shapes do not fix (the first ``fn`` of
+        a key is the one captured).  Inputs are made contiguous first.
+        With ``out``, the outputs are written into those tensors, which
+        are returned."""
+        inputs = tuple(x.contiguous() for x in inputs)
+        if not _graphed(inputs[0]):
+            return _written(fn(*inputs), out)
+        key = (tag, str(inputs[0].device)) + tuple(
+            (tuple(x.shape), x.dtype) for x in inputs)
+        with self._lock:
+            prog = self._programs.get(key)
+            new = prog is None
+            if new:
+                prog = self._programs[key] = Program(key, fn)
+            else:
+                self._programs.move_to_end(key)
+        result = prog(*inputs, out=out)
+        if new:
+            self._bound(prog)
+        return result
+
+    def _bound(self, newest: Program) -> None:
+        """Drop the least recently used programs (never ``newest``) while
+        the cache is over a bound, then return their pools."""
+        dropped = []
+        with self._lock:
+            def over():
+                progs = self._programs.values()
+                return ((self.max_programs is not None
+                         and len(progs) > self.max_programs)
+                        or (self.max_bytes is not None
+                            and sum(p.reserved for p in progs)
+                            > self.max_bytes))
+            while len(self._programs) > 1 and over():
+                key = next(iter(self._programs))
+                if self._programs[key] is newest:
+                    self._programs.move_to_end(key)
+                    continue
+                dropped.append(self._programs.pop(key))
+            self.dropped += len(dropped)
+        _release(dropped)
+
+    def programs(self) -> List[Program]:
+        """The cached programs, least recently used first."""
+        with self._lock:
+            return list(self._programs.values())
+
+    def nbytes(self) -> int:
+        """The cached programs' ``reserved``, summed."""
+        return sum(p.reserved for p in self.programs())
+
+    def clear(self) -> None:
+        """Drop every cached program and return their graphs' pools to the
+        card."""
+        with self._lock:
+            dropped = list(self._programs.values())
+            self._programs.clear()
+        _release(dropped)
+
+
+def _release(dropped: List[Program]) -> None:
+    """Let the programs of ``dropped`` go, then empty the allocator's cache
+    so that their graphs' pools go back to the card and a later capture
+    can have them; between captures (the allocator frees nothing while
+    one is underway)."""
+    devices = {p.static_in[0].device for p in dropped if p.graph is not None}
+    dropped.clear()  # the last references: the graphs and pools go
+    for device in devices:
+        with _CAPTURE_LOCK, torch.cuda.device(device):
+            torch.cuda.empty_cache()
+
+
+def _graphed(x: torch.Tensor) -> bool:
+    """Whether a program of ``x``'s device captures and replays here: on
+    CUDA tensors, outside the eager route."""
+    return x.device.type == "cuda" and not getattr(_ROUTE, "eager", False)
+
+
+# the data-independent programs (registration, fields, strain sampling)
+_SHARED = ProgramCache(MAX_PROGRAMS)
+
+
 def run(tag: tuple, fn: Callable[..., Tuple[torch.Tensor, ...]],
         *inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """``fn(*inputs)``, a tuple of tensors: on CUDA tensors through the
-    program of (``tag``, device, the inputs' shapes and dtypes), captured
-    at its first call and replayed after; as it is on CPU tensors and on
-    the eager route.  ``tag`` names everything ``fn`` computes that the
-    inputs' shapes do not fix.  Inputs are made contiguous first."""
-    inputs = tuple(x.contiguous() for x in inputs)
-    dev = inputs[0].device
-    if dev.type != "cuda" or getattr(_ROUTE, "eager", False):
-        return tuple(fn(*inputs))
-    key = (tag, str(dev)) + tuple((tuple(x.shape), x.dtype) for x in inputs)
-    with _CACHE_LOCK:
-        prog = _PROGRAMS.get(key)
-        if prog is None:
-            prog = _PROGRAMS[key] = Program(key, fn)
-            while len(_PROGRAMS) > MAX_PROGRAMS:
-                _PROGRAMS.popitem(last=False)
-        else:
-            _PROGRAMS.move_to_end(key)
-    return prog(*inputs)
+    """:meth:`ProgramCache.run` on the module-level cache, which keeps at
+    most ``MAX_PROGRAMS``."""
+    return _SHARED.run(tag, fn, *inputs)
 
 
 def programs() -> List[Program]:
-    """The cached programs, least recently used first."""
-    with _CACHE_LOCK:
-        return list(_PROGRAMS.values())
+    """The module-level cache's programs, least recently used first."""
+    return _SHARED.programs()
 
 
 def clear() -> None:
-    """Drop every cached program (their graphs and memory pools go with
-    the last reference)."""
-    with _CACHE_LOCK:
-        _PROGRAMS.clear()
+    """Drop every program of the module-level cache."""
+    _SHARED.clear()
 
 
 @contextlib.contextmanager
