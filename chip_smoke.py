@@ -91,13 +91,27 @@
    16-256, 4 classes, 192^2 crops) in the production profile (batches of
    128 slices, 10 steps per call, bf16, the device slice pool, 100
    iterations) and the reference profile (batches of 2 subjects, float32,
-   host augmentation, 40 iterations); prints ms per step, slices/s, peak
-   memory, the loop's wait on the loader, TFLOP/s from ``conv_flops`` x 3,
-   the losses by validation and the head kernel's launches in the
-   validations; fails unless both losses are finite and fall; holds one
-   float32 step's gradients on the card to the CPU's; profiles one
-   production step (device time by kernel family); deploys the trained
-   bundle on the card through the head kernel;
+   host augmentation, 40 iterations), each through the trainer's CUDA
+   graphs and then on the eager route from the same seed; prints for
+   each run ms per step, slices/s, peak memory, the loop's wait on the
+   loader, host dispatch per call, its programs' capture seconds and
+   memory, TFLOP/s from ``conv_flops`` x 3, the losses by validation and
+   the head kernel's launches in the validations; fails unless both
+   losses are finite and fall and each profile's two routes wrote the
+   same bundle (parameters, BN state, Adam leaves) and log bit for bit
+   with as many head launches; holds one float32 step's gradients on
+   the card to the CPU's; profiles one production step on the eager
+   route (device time by kernel family); runs the production call (K =
+   10 from the slice pool) and the reference step from the trained
+   bundles on the eager route, through the graphs and eagerly again (a
+   call's span and host dispatch, first-call seconds, device ops and
+   idle share under torch.profiler, each program's capture seconds and
+   memory; losses, parameters, BN buffers and Adam state bitwise, or
+   within the eager route's own spread), the validation program on both
+   routes (labels bitwise, head launches equal), and a checkpoint after
+   two graphed production calls resumed for two more against four
+   straight through (bitwise); deploys the trained bundle on the card
+   through the head kernel;
 8. a ResNet-FCN bundle at the FCN_sa widths from a seeded init, written
    by the port: card logits against the CPU's, its forward time per
    chunk, and ``segment_sequence_fused`` on the card through the head
@@ -112,12 +126,19 @@
    port's CPU path on a 10-frame cut; then ``cli.train_network_ao`` on the
    propagated labels at the released UNet-LSTM_ao widths, UNet and then
    UNet-LSTM restoring it, in the reference profile (batches of 5
-   subjects, float32, host augmentation) and with the production options
-   (fixed window batches, 10 steps per call, bf16, device augmentation,
-   the device cine pool): ms per step, windows/s, loader wait, peak
-   memory, TFLOP/s; fails unless every loss falls, one float32 step's
-   card and CPU gradients agree and the trained bundle's card and CPU
-   deploys agree; last, one packed SA and one packed aortic dispatch
+   subjects, float32, host augmentation; the subject cache on) through
+   the trainer's CUDA graphs and with the production options (fixed
+   window batches, 10 steps per call, bf16, device augmentation, the
+   device cine pool) through the graphs and on the eager route: ms per
+   step, windows/s, loader wait, host dispatch per call, peak memory,
+   the programs' capture seconds and memory, TFLOP/s; fails unless every
+   loss falls, the production routes' bundles and logs are bitwise
+   equal, one float32 step's card and CPU gradients
+   agree and the trained bundle's card and CPU deploys agree; the U-Net's
+   and the phase-2 UNet-LSTM's production calls and reference steps on
+   both routes as in phase 7 (the ConvLSTM's scan forward and backward
+   inside the graph), and their validation loss programs (bitwise);
+   last, one packed SA and one packed aortic dispatch
    against the raw path's labels, with the bytes each ships;
 10. ingestion: writes the cohort's 3 subjects as UK Biobank application
    zips of DICOMs with the port's writer (SA slices, LA 2/3/4-chamber,
@@ -164,9 +185,16 @@
 13. data-parallel training (``train/distributed.py``) on the one card:
    the production SA profile (128-slice batches, bf16, the slice pool
    through ``make_pool_slice_multi_dp_step``) in a world of one NCCL rank
-   against the single-card trainer run twice (cuDNN deterministic in
-   all three): params, BN state and Adam state bitwise equal; two gloo
-   ranks on cuda:0 (NCCL refuses two ranks on one card): one float32 step
+   (its step calls CUDA graphs with the gradient all-reduce captured)
+   against the single-card trainer through its graphs and on the eager
+   route (cuDNN deterministic in all three): params, BN state and Adam
+   state bitwise equal, each run's route, host dispatch and programs
+   printed; the DP pool step's call in a world of one NCCL rank in this
+   process on both routes as in phase 7 (span, host dispatch, idle
+   share, capture seconds and memory; bitwise under deterministic
+   cuDNN); two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+   card; their steps run uncaptured, by design, the route printed and
+   checked): one float32 step
    of the FCN_sa bundle at a global batch of 8 slices, gradients and BN
    state within GRAD_RTOL of the single-card step's, then 20 production
    SA iterations, then 10 UNet-LSTM iterations (8 windows, 4 a rank, from
@@ -2393,6 +2421,231 @@ def write_training_set(root, nifti):
                        seg[..., t], affine)
 
 
+# --- the trainers' programs on both routes (train/steps.py) ---------------
+
+def fcn_net(bundle):
+    """(net on the card, channels-last as the trainer has it, names,
+    config, params, state) of an FCN bundle."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+
+    _, mcfg, names, params, state = store.load_model(bundle)
+    net = convert.fcn_from_jax(params, state, names, mcfg).to(
+        "cuda", memory_format=torch.channels_last)
+    return net, names, mcfg, params, state
+
+
+def read_bundle(path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def differing(a: dict, b: dict) -> list:
+    """The keys whose arrays differ bitwise, or that one side lacks."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b
+                  or not np.array_equal(a[k], b[k]))
+
+
+def log_records(model_dir) -> list:
+    """A trainer's train_log.jsonl records without their host seconds."""
+    with open(os.path.join(model_dir, "train_log.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k != "seconds"} for line in f]
+
+
+def route_line(card, what, name, stats, items, unit, wall):
+    """One trainer run's line: ms per step, items/s, the loader's wait,
+    host dispatch per call, peak memory; then its captured programs."""
+    steps = stats["steady_iterations"]
+    ms = 1e3 * stats["steady_s"] / max(steps, 1)
+    calls = max(stats.get("steady_calls", 0), 1)
+    print(f"  {what}, {name} route ({stats.get('route')}, cuDNN "
+          f"deterministic): "
+          f"{stats['iterations']} iterations in {wall:.2f} s; steady {steps} "
+          f"steps at {ms:.4f} ms/step, {1e3 * items / ms:.2f} {unit}/s, "
+          f"waited on the loader {stats['wait_s']:.4f} s of "
+          f"{stats['steady_s']:.4f} s, host dispatch "
+          f"{1e3 * stats['dispatch_s'] / calls:.3f} ms a call; peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB, reserved {torch.cuda.max_memory_reserved() / 2 ** 30:.3f} "
+          f"GiB [{card}]")
+    for p in stats.get("programs", []):
+        print(f"    program {p['tag']} {tuple(p['first_input'])}: capture "
+              f"{p['capture_s']:.3f} s, memory_reserved "
+              f"+{p['reserved'] / 2 ** 20:.1f} MiB, {p['replays']} replays")
+    return ms
+
+
+def cli_routes(card, what, run, items, unit,
+               routes=("graphs", "eager")) -> dict:
+    """``run(name) -> (stats, model_dir)``, a trainer's CLI, on the graphs
+    route and then on the eager route, from the same seed, with cuDNN
+    deterministic (so that the two runs can be compared bit for bit):
+    each run's line and the head kernel's launches it counted.  Returns
+    {route: (stats, model_dir, head launches, ms per step)}."""
+    out = {}
+    for name in routes:
+        torch.cuda.reset_peak_memory_stats()
+        before = head_launches()
+        t0 = time.perf_counter()
+        with route(name), deterministic_cudnn():
+            stats, model_dir = run(name)
+        wall = time.perf_counter() - t0
+        ms = route_line(card, what, name, stats, items, unit, wall)
+        out[name] = (stats, model_dir, head_launches() - before, ms)
+    return out
+
+
+def routes_agree(what, out, bundle) -> None:
+    """Fails unless the graphs' run wrote the eager route's bundle (every
+    parameter, BN statistic and, where the trainer keeps it, Adam leaf)
+    and log records (losses, aux, validation metrics) bit for bit, with
+    as many head launches."""
+    a, b = (read_bundle(os.path.join(out[n][1], bundle))
+            for n in ("graphs", "eager"))
+    diff = differing(a, b)
+    logs = [log_records(out[n][1]) for n in ("graphs", "eager")]
+    launches = [out[n][2] for n in ("graphs", "eager")]
+    n_opt = sum(k.startswith("opt/") for k in a)
+    print(f"  {what}: graphs against the eager route: {len(a)} arrays "
+          f"({n_opt} Adam leaves) bitwise equal: {not diff}"
+          + (f" ({len(diff)} differ: {diff[:4]})" if diff else "")
+          + f"; {len(logs[0])} log records equal: {logs[0] == logs[1]}; "
+          f"head launches {launches[0]} / {launches[1]}; ms per step "
+          f"{out['graphs'][3]:.4f} against {out['eager'][3]:.4f}")
+    if diff or logs[0] != logs[1] or launches[0] != launches[1]:
+        raise AssertionError(f"{what}: the graphs route differs from the "
+                             "eager route")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms inside the block: with
+    its default ones a trainer's eager route is not bitwise against
+    itself (the f32 FCN's and the ConvLSTM's backward,
+    ``tests/test_torch_card.py``), so the routes are compared under it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _step_run(card, what, name, build, K, items, unit, timed=True):
+    """One route's four calls of a step (``build() -> (call, state,
+    programs)``): the first call (on the graphs an eager run and the
+    capture), the second (on the graphs the first replay, which also
+    uploads the graph), a timed call and a profiled one when ``timed``
+    (else a plain fourth call); prints what was measured.  Returns
+    (losses and state, ms per step or None)."""
+    with route(name):
+        call, state, cache = build()
+        seconds = []
+        losses = []
+        for _ in range(2):  # the first call; the first replay
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(call())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        losses.append(call())
+        host = time.perf_counter() - t0
+        ev[1].record()
+        ev[1].synchronize()
+        span = ev[0].elapsed_time(ev[1])
+        if timed:
+            n_ops, busy = profiled(lambda: losses.append(call()))
+        else:
+            losses.append(call())
+        snap = {"losses": torch.cat(losses).cpu(), **state()}
+        progs = [p for p in cache.programs() if p.graph is not None]
+        cache.clear()
+    if not timed:
+        return snap, None
+    if busy > span:
+        idle = (f"{n_ops} device ops, busy {busy:.4f} ms: more than the "
+                "span (kernels overlap; idle share not measured)")
+    elif busy > 0:
+        idle = (f"{n_ops} device ops, busy {busy:.4f} ms "
+                f"({100 * (1 - busy / span):.1f} % idle)")
+    else:
+        idle = "no device time recorded (idle share not measured)"
+    print(f"  {what}, {name} route: first call {seconds[0]:.3f} s, second "
+          f"{seconds[1]:.3f} s (on the graphs the first replay); a call of "
+          f"{K} steps {span:.4f} ms ({span / K:.4f} ms/step, "
+          f"{1e3 * items * K / span:.2f} {unit}/s), host dispatch "
+          f"{1e3 * host:.3f} ms; under torch.profiler {idle} [{card}]")
+    for p in progs:
+        print(f"    program {describe_program(p)}: capture "
+              f"{p.capture_s:.3f} s, memory_reserved "
+              f"+{p.reserved / 2 ** 20:.1f} MiB, {p.replays} replays")
+    return snap, span / K
+
+
+def _largest(a: dict, b: dict) -> dict:
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a}
+
+
+def step_routes(card, what, build, K, items, unit) -> dict:
+    """Four K-step calls of a trainer's step from the same start
+    (``build() -> (call, state, programs)``: ``call()`` runs one call and
+    returns its losses, ``state()`` the parameters, BN buffers and Adam
+    state) on the eager route, through the graphs and on the eager route
+    again, with cuDNN's default algorithms: per route the first call's
+    seconds (on the graphs an eager run and the capture), the second's
+    (the first replay), one call's device span (CUDA events) and host
+    dispatch, one call under
+    torch.profiler (device ops, busy ms, idle share), each program's
+    capture seconds and memory; the eager route's run-to-run spread and
+    the graphs' distance from it.  Then the eager route and the graphs
+    again with cuDNN deterministic: fails unless they leave the same
+    losses and state bit for bit.  Returns {route: ms per step}."""
+    eager, ms_eager = _step_run(card, what, "eager", build, K, items, unit)
+    graphs, ms_graphs = _step_run(card, what, "graphs", build, K, items,
+                                  unit)
+    again, _ = _step_run(card, what, "eager", build, K, items, unit,
+                         timed=False)
+    spread, got = _largest(eager, again), _largest(graphs, eager)
+    varied = sorted(k for k in spread if spread[k] > 0)
+    beyond = sorted(k for k in got if got[k] > spread[k])
+    with deterministic_cudnn():
+        det = [_step_run(card, what, name, build, K, items, unit,
+                         timed=False)[0] for name in ("eager", "graphs")]
+    differ = sorted(k for k, v in _largest(*det).items() if v > 0)
+    print(f"  {what}: {len(got)} tensors (losses, parameters, BN buffers, "
+          f"Adam state) after 4 calls; cuDNN's default algorithms: the "
+          f"eager route against itself "
+          + ("bitwise" if not varied else
+             f"{len(varied)} vary, up to {max(spread.values()):.3e}")
+          + ", the graphs against it "
+          + ("bitwise" if not any(got.values()) else
+             f"up to {max(got.values()):.3e} ({len(beyond)} tensors past "
+             "the eager spread of this one pair of runs)")
+          + "; cuDNN deterministic: the graphs against the eager route "
+          + ("bitwise" if not differ else f"{len(differ)} DIFFER: "
+             f"{differ[:4]}"))
+    if differ or set(det[0]) != set(det[1]):
+        raise AssertionError(f"{what}: the graphs route differs from the "
+                             "eager route")
+    return {"eager": ms_eager, "graphs": ms_graphs}
+
+
+def train_state(net, optimizer) -> dict:
+    """A model's parameters and buffers and its Adam state, on the CPU."""
+    out = {f"net.{k}": v.detach().cpu().clone()
+           for k, v in net.state_dict().items()}
+    for i, p in enumerate(p for g in optimizer.param_groups
+                          for p in g["params"]):
+        for k, v in optimizer.state[p].items():
+            out[f"adam.{i}.{k}"] = v.detach().cpu().clone()
+    return out
+
+
 def train_phase(card, work, fh):
     """FCN training on the card through ``cli.train_network.main`` in both
     profiles, at the released FCN_sa architecture; then one float32 step
@@ -2411,42 +2664,41 @@ def train_phase(card, work, fh):
     write_training_set(data, nifti)
     fh.fused_head.launches = 0
     bundles = {}
+    validation_launches = 0
     for profile, extra in (
             ("production", ["--pool_gb", "1.0"]),
             ("reference", [])):
-        torch.cuda.reset_peak_memory_stats()
-        ckpt = os.path.join(work, f"ckpt_{profile}")
-        t0 = time.perf_counter()
-        net, names, mcfg, stats = train_network.main(
-            ["--dataset_dir", data, "--profile", profile, "--checkpoint_dir",
-             ckpt, "--train_iteration", str(TRAIN_ITERS[profile]),
-             "--device", "cuda", "--seed", "0", *extra])
-        wall = time.perf_counter() - t0
-        (model_dir,) = os.listdir(ckpt)
-        model_dir = os.path.join(ckpt, model_dir)
-        with open(os.path.join(model_dir, "train_log.jsonl")) as f:
-            log = [json.loads(line) for line in f]
-        bundles[profile] = os.path.join(
-            model_dir, f"model-{TRAIN_ITERS[profile]}.npz")
-        losses = [r["loss"] for r in log]
         prod = profile == "production"
-        steps = stats["steady_iterations"]
-        ms = 1e3 * stats["steady_s"] / max(steps, 1)
         # slices per step: fixed in production; the reference's batches
         # of 2 subjects hold 2 x Z slices
         slices = TRAIN_BATCH if prod else 2 * TRAIN_SHAPE[2]
+
+        def run(name, profile=profile, extra=extra):
+            ckpt = os.path.join(work, f"ckpt_{profile}_{name}")
+            _, _, _, stats = train_network.main(
+                ["--dataset_dir", data, "--profile", profile,
+                 "--checkpoint_dir", ckpt, "--train_iteration",
+                 str(TRAIN_ITERS[profile]), "--device", "cuda", "--seed",
+                 "0", *extra])
+            (model_dir,) = os.listdir(ckpt)
+            return stats, os.path.join(ckpt, model_dir)
+
+        out = cli_routes(card, profile, run, slices, "slices")
+        name = f"model-{TRAIN_ITERS[profile]}.npz"
+        routes_agree(profile, out, name)
+        stats, model_dir, launched, ms = out["graphs"]
+        validation_launches += launched
+        bundles[profile] = os.path.join(model_dir, name)
+        log = log_records(model_dir)
+        net = fcn_net(bundles[profile])[0]
+        losses = [r["loss"] for r in log]
         x = torch.zeros((slices, 1, TRAIN_CROP, TRAIN_CROP), device="cuda",
                         dtype=torch.bfloat16 if prod else torch.float32)
         with torch.no_grad():
             flop = 3 * conv_flops(net, lambda: net(x, fused_head=False))
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"  {profile}: {stats['iterations']} iterations in {wall:.2f} "
-              f"s; steady {steps} steps at {ms:.4f} ms/step, "
-              f"{1e3 * slices / ms:.1f} slices/s, waited on the loader "
-              f"{stats['wait_s']:.4f} s of {stats['steady_s']:.4f} s; "
-              f"max allocated {mem:.3f} GiB; {flop / 1e12:.4f} TFLOP per step "
-              f"(conv_flops x 3, concat head) at "
-              f"{flop / ms / 1e9:.2f} TFLOP/s [{card}]")
+        print(f"  {profile}: {flop / 1e12:.4f} TFLOP per step (conv_flops "
+              f"x 3, concat head) at {flop / ms / 1e9:.2f} TFLOP/s on the "
+              f"graphs [{card}]")
         print(f"  {profile}: loss by validation "
               + ", ".join(f"{r['iteration']}: {r['loss']:.4f}" for r in log)
               + f"; last val Dice LV/Myo/RV "
@@ -2456,8 +2708,8 @@ def train_phase(card, work, fh):
             raise AssertionError(f"{profile}: loss not finite or not "
                                  f"falling: {losses}")
     head_launches = fh.fused_head.launches
-    print(f"  fused_head launches in the two trainings' validations: "
-          f"{head_launches}")
+    print(f"  fused_head launches in the validations: graphs route "
+          f"{validation_launches}, both routes {head_launches}")
 
     # one float32 step from the same weights and batch, card vs CPU
     from ukbb_cardiac_tpu_torch.ckpt import convert, store
@@ -2504,7 +2756,9 @@ def train_phase(card, work, fh):
           f"(moving statistics at 0.99^{TRAIN_ITERS['production']} = "
           f"{0.99 ** TRAIN_ITERS['production']:.2f} of their initial "
           f"values)")
-    step_profile(card, params, state, names, mcfg, data)
+    with route("eager"):
+        step_profile(card, params, state, names, mcfg, data)
+    train_programs(card, work, bundles, data)
 
     # the trained bundle deploys through the head kernel, which folds its
     # trained BN statistics; the port's CPU deploy of it is the yardstick
@@ -2545,7 +2799,151 @@ def train_phase(card, work, fh):
         raise AssertionError(f"trained bundle deploy: seg {seg.shape}, "
                              f"launches {deploy_launches}, agreement "
                              f"{agree}, logits err {err}")
-    return head_launches + deploy_launches
+    return validation_launches + deploy_launches
+
+
+def slice_pool_call(data, K):
+    """The production profile's slice pool on the card, filled by the
+    trainer's own sampler from phase 7's training pairs, and one call's
+    (K, 128) index batches: (pool image, pool label, batches)."""
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    train_list = tsa.scan_dataset(data, "sa")["train"]
+    cfg = tsa.SATrainConfig(image_size=TRAIN_CROP, batch_slices=TRAIN_BATCH,
+                            steps_per_dispatch=K, pool_gb=1.0,
+                            device_augment=True, device_slices=True)
+    pool = tsa._pool_for(cfg, train_list, K, "cuda", verbose=False)
+    sample = tsa.make_device_slice_sampler(train_list, TRAIN_BATCH, pool,
+                                           image_size=TRAIN_CROP,
+                                           rng=random.Random(0))
+    drawn = [sample() for _ in range(K)]
+    batches = {k: torch.from_numpy(np.stack([b[k] for b in drawn])).cuda()
+               for k in drawn[0]}
+    return (*pool.snapshot(), batches)
+
+
+def train_programs(card, work, bundles, data):
+    """Phase 7's step programs on both routes from the trained bundles:
+    the production call (K = 10 steps of 128 slices from the slice pool,
+    bf16, device augmentation) and the reference step (f32, a host
+    augmented batch of 2 subjects) through :func:`step_routes`; the
+    validation program (fold + pack + encoder + head kernel + argmax) on
+    both routes, labels and head launches compared; and a checkpoint
+    written after two graphed production calls, restored as the trainer
+    restores it, continued for two more: bitwise the four calls straight
+    through."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps
+
+    K = 10
+    lr = {"production": 1e-3 * TRAIN_BATCH / 20, "reference": 1e-3}
+    train_list = tsa.scan_dataset(data, "sa")["train"]
+    img, lab, batches = slice_pool_call(data, K)
+    ref_img, ref_lab = tsa.get_random_batch(
+        train_list, 2, image_size=TRAIN_CROP, data_augmentation=True,
+        rotate=10, scale=0.2, rng=random.Random(1))
+    ref_batch = {"image": torch.from_numpy(ref_img).cuda(),
+                 "label": torch.from_numpy(ref_lab).cuda()}
+
+    def fresh(profile, path):
+        prod = profile == "production"
+        net, names, mcfg, _, _ = fcn_net(path)
+        opt = steps.Adam(net.parameters(), lr=lr[profile])
+        leaves = store.load_opt_state(path)
+        if leaves is not None:
+            convert.load_adam_leaves(opt, net, convert.fcn_layout(names, mcfg),
+                                     leaves)
+        cache = ProgramCache(max_bytes=steps.TRAINER_BYTES)
+        loss_fn = tsa.make_fcn_loss(
+            net, mcfg, device_augment=prod,
+            compute_dtype=torch.bfloat16 if prod else None)
+        step, multi = tsa.make_steps(loss_fn, opt, None, cache, prod,
+                                     "slice")
+        if prod:
+            def call(c=0):
+                return multi(img, lab, batches,
+                             [c * K + k + 1 for k in range(K)])[0]
+        else:
+            def call(c=0):
+                return step(ref_batch, c + 1)[0][None]
+        return net, opt, names, mcfg, cache, call
+
+    def build(profile):
+        def make():
+            net, opt, _, _, cache, call = fresh(profile, bundles[profile])
+            return call, lambda: train_state(net, opt), cache
+        return make
+
+    step_routes(card, f"production step call (K = {K}, {TRAIN_BATCH} "
+                f"slices, bf16, the slice pool, device augmentation)",
+                build("production"), K, TRAIN_BATCH, "slices")
+    step_routes(card, f"reference step ({ref_img.shape[0]} slices of 2 "
+                "subjects, f32, host augmentation)", build("reference"), 1,
+                ref_img.shape[0], "slices")
+
+    # the validation program on both routes
+    v_img, _ = tsa.get_random_batch(tsa.scan_dataset(data, "sa")[
+        "validation"], 2, image_size=TRAIN_CROP, rng=random.Random(3))
+    net = fcn_net(bundles["production"])[0]
+    cache = ProgramCache()
+    got = []
+    for name in ("eager", "graphs", "graphs", "graphs", "eager"):
+        before = head_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with route(name):
+            labels = tsa.validation_predict(net, v_img, "cuda", cache)
+        got.append((name, labels, time.perf_counter() - t0,
+                    head_launches() - before))
+    progs = [p for p in cache.programs() if p.graph is not None]
+    same = all(np.array_equal(g[1], got[0][1]) for g in got)
+    print(f"  validation forward on {v_img.shape}: "
+          + ", ".join(f"{n} {1e3 * t:.3f} ms ({k} head launches)"
+                      for n, _, t, k in got)
+          + f" (host seconds to the labels); labels "
+          f"{'bitwise equal' if same else 'DIFFER'} [{card}]")
+    for p in progs:
+        print(f"    program {describe_program(p)}: capture {p.capture_s:.3f} "
+              f"s, memory_reserved +{p.reserved / 2 ** 20:.1f} MiB, "
+              f"{p.replays} replays, "
+              f"{sum(p.launches.counts.values())} kernel launches a replay")
+    cache.clear()
+    if not same or len({g[3] for g in got}) != 1 or not progs:
+        raise AssertionError("the validation program differs from the eager "
+                             "route")
+
+    # a checkpoint after two graphed calls resumes into the same next calls
+    # (cuDNN deterministic: a fresh program's first call runs eagerly)
+    with deterministic_cudnn():
+        net, opt, names, mcfg, cache, call = fresh("production",
+                                                   bundles["production"])
+        straight = [call(c) for c in range(4)]
+        want = train_state(net, opt)
+        cache.clear()
+        net, opt, names, mcfg, cache, call = fresh("production",
+                                                   bundles["production"])
+        first = [call(c) for c in range(2)]
+        path = os.path.join(work, "resume_chunk.npz")
+        tsa.save_checkpoint(path, net, names, opt,
+                            convert.fcn_layout(names, mcfg),
+                            {"iteration": 2 * K, "seq_name": "sa"})
+        cache.clear()
+        net, opt, _, _, cache, call = fresh("production", path)
+        second = [call(c) for c in range(2, 4)]
+        have = train_state(net, opt)
+        cache.clear()
+        same = (all(torch.equal(a, b)
+                    for a, b in zip(straight, first + second))
+                and all(torch.equal(want[k], have[k]) for k in want))
+    print(f"  a checkpoint after 2 graphed production calls, restored and "
+          f"continued for 2 (cuDNN deterministic): losses, {len(want)} "
+          f"parameters, buffers and Adam tensors "
+          f"{'bitwise equal to' if same else 'DIFFER from'} 4 "
+          "calls straight through")
+    if not same:
+        raise AssertionError("resuming after a graphed chunk differs")
 
 
 def step_profile(card, params, state, names, mcfg, data):
@@ -2570,8 +2968,8 @@ def step_profile(card, params, state, names, mcfg, data):
                  torch.uint8).cuda()}
     loss_fn = tsa.make_fcn_loss(net, mcfg, device_augment=True,
                                 compute_dtype=torch.bfloat16)
-    step = steps.make_train_step(loss_fn, torch.optim.Adam(
-        net.parameters(), lr=1e-4))
+    step = steps.make_train_step(loss_fn, steps.Adam(net.parameters(),
+                                                     lr=1e-4))
     seeds = iter(range(1, 1000))
     ms = cuda_ms(lambda: step(batch, next(seeds)), iters=5, warmup=2)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2604,8 +3002,9 @@ def step_profile(card, params, state, names, mcfg, data):
         fam = next((f for f, keys in families.items()
                     if any(k in name for k in keys)), "other")
         by[fam] += e.self_device_time_total / 3e3
-    print(f"  production step alone (128 x {TRAIN_CROP}^2, bf16, device "
-          f"augmentation): {ms:.4f} ms (CUDA events), of which the "
+    print(f"  production step alone, eager route (128 x {TRAIN_CROP}^2, "
+          f"bf16, device augmentation): {ms:.4f} ms (CUDA events), of which "
+          f"the "
           f"augmentation alone {aug_ms:.4f} ms [{card}]")
     if busy > 0:
         n_ops = sum(e.count for e in kern) / 3
@@ -2827,9 +3226,10 @@ def propagation_phase(card, work, bf):
 def ao_train_phase(card, root, truth, work):
     """``cli.train_network_ao`` on the propagated labels at the released
     UNet-LSTM_ao widths: UNet, then UNet-LSTM restoring it, in the
-    reference profile and with the production options; one float32 step's
-    card and CPU gradients; the trained UNet-LSTM bundle deployed on the
-    card and on the CPU."""
+    reference profile and with the production options (those on both
+    routes); the step programs on both routes (:func:`ao_programs`); one
+    float32 step's card and CPU gradients; the trained UNet-LSTM bundle
+    deployed on the card and on the CPU."""
     from ukbb_cardiac_tpu_torch.cli import train_network_ao
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import deploy_dataset_ao
     from ukbb_cardiac_tpu_torch.io import nifti
@@ -2846,42 +3246,55 @@ def ao_train_phase(card, root, truth, work):
     bundles = {}
     for profile in ("reference", "production"):
         n_iter = AO_TRAIN_ITERS[profile]
-        ckpt = os.path.join(work, f"ao_ckpt_{profile}")
         unet_bundle = None
         for model in ("UNet", "UNet-LSTM"):
-            flags = ["--dataset_dir", root, "--model", model,
-                     "--train_iteration", str(n_iter), "--checkpoint_dir",
-                     ckpt, "--device", "cuda"]
-            if profile == "production":
-                flags += ["--batch_windows", str(AO_BATCH_WINDOWS[model]),
-                          "--steps_per_dispatch", str(AO_K), "--bf16",
-                          "--device_augment", "--device_windows",
-                          "--compact_transfer", "--cache_gb", "2"]
-            if unet_bundle:
-                flags += ["--model_path", unet_bundle]
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            net, names, ucfg, stats = train_network_ao.main(flags)
-            wall = time.perf_counter() - t0
-            cfg = tao.AoTrainConfig(model=model)
-            (model_dir,) = [os.path.join(ckpt, m) for m in os.listdir(ckpt)
-                            if m.startswith(model + "_")]
-            with open(os.path.join(model_dir, "train_log.jsonl")) as f:
-                log = [json.loads(line) for line in f]
-            bundle = os.path.join(model_dir, f"model-{n_iter}.npz")
-            bundles[(profile, model)] = bundle
-            if model == "UNet":
-                unet_bundle = bundle
-            steps = stats["steady_iterations"]
-            ms = 1e3 * stats["steady_s"] / max(steps, 1)
             prod = profile == "production"
+
+            def run(name, model=model, unet_bundle=unet_bundle,
+                    profile=profile, n_iter=n_iter):
+                ckpt = os.path.join(work, f"ao_ckpt_{profile}_{name}")
+                flags = ["--dataset_dir", root, "--model", model,
+                         "--train_iteration", str(n_iter),
+                         "--checkpoint_dir", ckpt, "--device", "cuda"]
+                # the subject cache in both profiles: the reference
+                # profile's loader decoded 5 cines a step (1.7-2.4 s)
+                flags += ["--cache_gb", "2"]
+                if profile == "production":
+                    flags += ["--batch_windows", str(AO_BATCH_WINDOWS[model]),
+                              "--steps_per_dispatch", str(AO_K), "--bf16",
+                              "--device_augment", "--device_windows",
+                              "--compact_transfer"]
+                if unet_bundle:
+                    flags += ["--model_path", unet_bundle]
+                _, _, _, stats = train_network_ao.main(flags)
+                (model_dir,) = [os.path.join(ckpt, m) for m in os.listdir(ckpt)
+                                if m.startswith(model + "_")]
+                return stats, model_dir
+
+            cfg = tao.AoTrainConfig(model=model)
             tw = cfg.time_window
             # windows per step: fixed in production; the reference's 5
             # subjects hold 2 annotated frames each
             windows = (AO_BATCH_WINDOWS[model] if prod
                        else 5 * len(AO_ANNOTATED))
+            # the reference profile waits on its host loader (host
+            # augmentation of 5 subjects' windows): its routes are
+            # compared step by step (ao_programs) instead
+            out = cli_routes(card, f"{profile} {model}", run, windows,
+                             f"windows ({tw} frames each)",
+                             ("graphs", "eager") if prod else ("graphs",))
+            if prod:
+                routes_agree(f"{profile} {model}", out,
+                             f"model-{n_iter}.npz")
+            stats, model_dir, _, ms = out["graphs"]
+            log = log_records(model_dir)
+            bundle = os.path.join(model_dir, f"model-{n_iter}.npz")
+            bundles[(profile, model)] = bundle
+            if model == "UNet":
+                unet_bundle = bundle
             side = AO_SIZE_TRAIN
             dtype = torch.bfloat16 if prod else torch.float32
+            net = ao_net(bundle, model)
             unet = net.unet if model == "UNet-LSTM" else net
             x = torch.zeros((windows * tw, 1, side, side), device="cuda",
                             dtype=dtype)
@@ -2891,15 +3304,9 @@ def ao_train_phase(card, root, truth, work):
             # it runs forward only, the LSTM forward + backward
             flop = 3 * f_unet if model == "UNet" else (
                 f_unet + 3 * lstm_flops(windows * tw, side, side, 16, 16, 3))
-            mem = torch.cuda.max_memory_allocated() / 2 ** 30
             losses = [r["loss"] for r in log]
-            print(f"  {profile} {model}: {stats['iterations']} iterations in "
-                  f"{wall:.2f} s; steady {steps} steps at {ms:.4f} ms/step, "
-                  f"{1e3 * windows / ms:.2f} windows/s ({tw} frames each), "
-                  f"waited on the loader {stats['wait_s']:.4f} s of "
-                  f"{stats['steady_s']:.4f} s; max allocated {mem:.3f} GiB; "
-                  f"{flop / 1e12:.4f} TFLOP per step at "
-                  f"{flop / ms / 1e9:.2f} TFLOP/s [{card}]")
+            print(f"  {profile} {model}: {flop / 1e12:.4f} TFLOP per step at "
+                  f"{flop / ms / 1e9:.2f} TFLOP/s on the graphs [{card}]")
             print(f"  {profile} {model}: loss by log record "
                   + ", ".join(f"{r['iteration']}: {r['loss']:.4f}"
                               for r in log)
@@ -2910,6 +3317,7 @@ def ao_train_phase(card, root, truth, work):
                     and len(losses) >= 2 and losses[-1] < losses[0]):
                 raise AssertionError(f"{profile} {model}: loss not finite "
                                      f"or not falling: {losses}")
+    ao_programs(card, root, bundles)
 
     # one float32 step (joint: the U-Net takes gradients too) from the
     # trained production UNet-LSTM, card vs CPU
@@ -2962,6 +3370,125 @@ def ao_train_phase(card, root, truth, work):
     if agree < 0.999:
         raise AssertionError(f"trained aortic bundle: card and CPU labels "
                              f"agree on {agree}")
+
+
+def ao_net(bundle, model):
+    """The trained aortic model of a bundle on the card, channels-last as
+    the trainer has it."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.models.wrappers import UNetLSTM
+
+    _, ucfg, names, params, state = store.load_model(bundle)
+    unet = convert.unet_from_jax(params, state, names, ucfg)
+    net = (UNetLSTM(unet, convert.convlstm_from_jax(params, True))
+           if model == "UNet-LSTM" else unet)
+    return net.to("cuda", memory_format=torch.channels_last)
+
+
+def ao_programs(card, root, bundles):
+    """Phase 9's step programs on both routes from the trained bundles
+    (:func:`step_routes`): the U-Net's and the phase-2 UNet-LSTM's (Adam
+    over the LSTM, the U-Net frozen under ``no_grad`` inside the graph)
+    production calls (K = 10 from the window pool, bf16, device
+    augmentation) and reference steps (f32, host augmented windows of 5
+    subjects); then the validation loss program of each, bitwise against
+    the eager route."""
+    from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps
+
+    data = tao.scan_dataset_ao(root)
+    for model in ("UNet", "UNet-LSTM"):
+        cfg = tao.AoTrainConfig(
+            model=model, image_size=AO_SIZE_TRAIN,
+            batch_windows=AO_BATCH_WINDOWS[model], steps_per_dispatch=AO_K,
+            device_augment=True, device_windows=True, pool_gb=2.0,
+            device="cuda")
+        pool, sample = tao._make_device_window_pipeline(
+            cfg, data["train"], AO_K, random.Random(0), None, "cuda",
+            verbose=False)
+        drawn = [sample() for _ in range(AO_K)]
+        batches = {k: torch.from_numpy(np.stack([b[k] for b in drawn])).cuda()
+                   for k in drawn[0]}
+        img, lab = pool.snapshot()
+        ref_img, ref_lab = tao.get_random_batch_ao(
+            data["train"], 5, image_size=AO_SIZE_TRAIN,
+            time_window=cfg.time_window, flatten=model == "UNet",
+            data_augmentation=True, rotate=10, scale=0.2,
+            rng=random.Random(1))
+        ref_batch = {"image": torch.from_numpy(ref_img).cuda(),
+                     "label": torch.from_numpy(ref_lab).cuda()}
+
+        def build(profile, model=model, cfg=cfg, img=img, lab=lab,
+                  batches=batches, ref_batch=ref_batch):
+            prod = profile == "production"
+
+            def make():
+                net = ao_net(bundles[(profile, model)], model)
+                opt = tao.make_ao_optimizer(cfg, net)
+                cache = ProgramCache(max_bytes=steps.TRAINER_BYTES)
+                loss_fn = tao.make_ao_loss(
+                    cfg, net, device_augment=prod,
+                    compute_dtype=torch.bfloat16 if prod else None)
+                step, multi = tsa.make_steps(loss_fn, opt, None, cache,
+                                             prod, "window")
+                if prod:
+                    def call():
+                        return multi(img, lab, batches,
+                                     list(range(1, AO_K + 1)))[0]
+                else:
+                    def call():
+                        return step(ref_batch, 1)[0][None]
+                return call, lambda: train_state(net, opt), cache
+            return make
+
+        step_routes(card, f"{model} production call (K = {AO_K}, "
+                    f"{cfg.batch_windows} windows of {cfg.time_window} "
+                    "frames, bf16, the window pool, device augmentation)",
+                    build("production"), AO_K, cfg.batch_windows,
+                    "windows")
+        n_ref = ref_img.shape[0] // (cfg.time_window if model == "UNet"
+                                     else 1)
+        step_routes(card, f"{model} reference step ({ref_img.shape[0]} "
+                    f"{'frames' if model == 'UNet' else 'windows'}, f32, "
+                    "host augmentation)", build("reference"), 1, n_ref,
+                    "windows")
+
+        # the validation loss on both routes
+        net = ao_net(bundles[("production", model)], model)
+        eval_loss = tao.make_ao_loss(cfg, net, train=False)
+        cache = ProgramCache()
+        v_img, v_lab = tao.get_random_batch_ao(
+            data["validation"], 5, image_size=AO_SIZE_TRAIN,
+            time_window=cfg.time_window, flatten=model == "UNet",
+            rng=random.Random(2))
+        v = {"image": torch.from_numpy(v_img).cuda(),
+             "label": torch.from_numpy(v_lab).cuda()}
+        eval_step = steps.make_eval_step(lambda b: eval_loss(b, 0),
+                                         programs=cache)
+        got = []
+        for name in ("eager", "graphs", "graphs", "graphs", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with route(name):
+                loss, aux = eval_step(v)
+            got.append((name, float(loss), {k: float(a)
+                                            for k, a in aux.items()},
+                        time.perf_counter() - t0))
+        progs = [p for p in cache.programs() if p.graph is not None]
+        same = all(g[1:3] == got[0][1:3] for g in got)
+        print(f"  {model} validation loss on {tuple(v_img.shape)}: "
+              + ", ".join(f"{n} {1e3 * t:.3f} ms" for n, _, _, t in got)
+              + f" (host seconds to the values); loss {got[0][1]:.6f}, "
+              f"{'bitwise equal' if same else 'DIFFER'} on both routes"
+              + "".join(f"; program capture {p.capture_s:.3f} s, "
+                        f"+{p.reserved / 2 ** 20:.1f} MiB" for p in progs)
+              + f" [{card}]")
+        cache.clear()
+        if not same or not progs:
+            raise AssertionError(f"{model}: the validation loss program "
+                                 "differs from the eager route")
 
 
 def packed_phase(card, engine_mod, deploy):
@@ -3890,9 +4417,58 @@ def train_log(ckpt):
         return model_dir, [json.loads(line) for line in f]
 
 
+def nccl_step_routes(card, work, data):
+    """A world of one NCCL rank in this process: the data-parallel pool
+    step (``make_pool_slice_multi_dp_step``, K = 10 x 128 slices, bf16,
+    the FCN_sa bundle) on both routes through :func:`step_routes` (its
+    all-reduce captured in the graph); the group goes at the end."""
+    import torch.distributed as dist
+
+    from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
+    from ukbb_cardiac_tpu_torch.train import device_pool
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps
+
+    K = 10
+    img, lab, batches = slice_pool_call(data, K)
+    rendezvous = tempfile.mkdtemp(dir=work)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rendezvous}/rdv", world_size=1,
+        rank=0, device_id=torch.device("cuda:0"))
+    try:
+        group = dist.group.WORLD
+        routes = set()
+
+        def build():
+            net, names, mcfg, _, _ = fcn_net(BUNDLE)
+            opt = steps.Adam(net.parameters(), lr=1e-3 * TRAIN_BATCH / 20)
+            cache = ProgramCache(max_bytes=steps.TRAINER_BYTES)
+            step = device_pool.make_pool_slice_multi_dp_step(
+                tsa.make_fcn_loss(net, mcfg, device_augment=True,
+                                  compute_dtype=torch.bfloat16,
+                                  group=group),
+                opt, group, programs=cache)
+            routes.add(step.route)
+
+            def call():
+                return step(img, lab, batches, list(range(1, K + 1)))[0]
+            return call, lambda: train_state(net, opt), cache
+
+        step_routes(card, f"DP pool step call, a world of one NCCL rank (K "
+                    f"= {K}, {TRAIN_BATCH} slices, bf16)", build, K,
+                    TRAIN_BATCH, "slices")
+        print(f"  its route: {routes}")
+        if routes != {"nccl group (graphs)"}:
+            raise AssertionError(f"NCCL step route: {routes}")
+    finally:
+        dist.destroy_process_group()
+
+
 def dp_phase(card, work, ao_root):
     """Data-parallel training on the one card: a world of one NCCL rank
-    against the single-card trainer, bitwise; then one group of two gloo
+    against the single-card trainer, bitwise; the DP step's call of a
+    world of one NCCL rank on both routes (:func:`nccl_step_routes`);
+    then one group of two gloo
     ranks on cuda:0 (one spawn, ``distributed.run_in_turn``) for 20
     production SA iterations, one float32 step against the single-card
     step, and 10 UNet-LSTM iterations beside the single card's, losses
@@ -3936,45 +4512,60 @@ def dp_phase(card, work, ao_root):
                 and losses[-1] < losses[0]):
             raise AssertionError(f"{what}: losses not falling: {losses}")
 
-    # a world of one NCCL rank against the single-card trainer, run twice:
-    # cuDNN restricted to deterministic algorithms in all three (the ranks
-    # take the caller's setting), so the trainer is its own control
+    # a world of one NCCL rank against the single-card trainer, on the
+    # graphs and on the eager route: cuDNN restricted to deterministic
+    # algorithms in all three (the ranks take the caller's setting)
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         runs = {}
-        for name in ("single card", "single card again", "NCCL world of 1"):
-            ckpt = os.path.join(work, "dp_" + name.replace(" ", "_"))
+        for name in ("single card", "single card, eager route",
+                     "NCCL world of 1"):
+            ckpt = os.path.join(work, "dp_" + name.replace(" ", "_")
+                                .replace(",", ""))
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
-            _, _, _, stats = tsa.train(
-                dp_sa_config(ckpt, data, DP_ITERS), progress_every=1000,
-                **({"devices": ["cuda:0"], "backend": "nccl"}
-                   if name.startswith("NCCL") else {}))
+            with route("eager" if "eager" in name else "graphs"):
+                _, _, _, stats = tsa.train(
+                    dp_sa_config(ckpt, data, DP_ITERS), progress_every=1000,
+                    **({"devices": ["cuda:0"], "backend": "nccl"}
+                       if name.startswith("NCCL") else {}))
             wall = time.time() - t0
             model_dir, _ = train_log(ckpt)
             with np.load(os.path.join(model_dir,
                                       f"model-{DP_ITERS}.npz")) as z:
                 runs[name] = {k: z[k] for k in z.files}
             nccl = name.startswith("NCCL")
-            report(f"SA, {name}", stats, TRAIN_BATCH, wall,
-                   t0 if nccl else None)
+            report(f"SA, {name} ({stats['route']})", stats, TRAIN_BATCH,
+                   wall, t0 if nccl else None)
+            calls = max(stats["steady_calls"], 1)
+            print(f"    host dispatch {1e3 * stats['dispatch_s'] / calls:.3f} "
+                  f"ms a call; programs: " + ("; ".join(
+                      f"{p['tag']} {tuple(p['first_input'])} capture "
+                      f"{p['capture_s']:.3f} s, +{p['reserved'] / 2 ** 20:.1f}"
+                      f" MiB" for p in stats["programs"]) or "none"))
             if nccl:
                 launches += stats["fused_head_launches"]
                 print(f"  head launches in rank 0's validations: "
                       f"{stats['fused_head_launches']}")
+                if stats["route"] != "nccl group (graphs)":
+                    raise AssertionError(f"NCCL route: {stats['route']}")
     finally:
         torch.backends.cudnn.deterministic = saved
-    for name in ("single card again", "NCCL world of 1"):
+    for name in ("single card, eager route", "NCCL world of 1"):
         differ = sorted(k for k, v in runs["single card"].items()
                         if not np.array_equal(v, runs[name][k]))
-        print(f"  {name} against the single card: "
+        print(f"  {name} against the single card's graphs: "
               f"{len(runs['single card'])} arrays (params, BN state, Adam "
               f"state), bitwise equal: {not differ}"
               + (f" ({len(differ)} differ: {differ[:4]})" if differ else ""))
         if differ or set(runs[name]) != set(runs["single card"]):
             raise AssertionError(f"{name}: {len(differ)} arrays differ from "
                                  "the single-card trainer's")
+
+    # the DP pool step of a world of one NCCL rank, in this process, on
+    # both routes (its gradient all-reduce captured in the graph)
+    nccl_step_routes(card, work, data)
 
     # one group of two gloo ranks on cuda:0 for three jobs: 20 production
     # SA iterations, one float32 step of the FCN_sa bundle at a global
@@ -3989,9 +4580,8 @@ def dp_phase(card, work, ao_root):
                  {"image": images[None, :GRAD_BATCH],
                   "label": labels[None, :GRAD_BATCH]}, [1], None, 1e-4,
                  "single")
-    (unet_dir,) = [os.path.join(work, "ao_ckpt_production", m)
-                   for m in os.listdir(os.path.join(work,
-                                                    "ao_ckpt_production"))
+    ao_ckpt = os.path.join(work, "ao_ckpt_production_graphs")
+    (unet_dir,) = [os.path.join(ao_ckpt, m) for m in os.listdir(ao_ckpt)
                    if m.startswith("UNet_")]
     ao_cfgs = {name: tao.AoTrainConfig(
         model="UNet-LSTM", image_size=AO_SIZE_TRAIN,
@@ -4015,7 +4605,10 @@ def dp_phase(card, work, ao_root):
     wall = time.time() - t0
     print(f"  two gloo ranks on cuda:0, three jobs in one group: {wall:.2f} "
           "s with the spawn")
-    report("SA over 2 gloo ranks", sa_stats, TRAIN_BATCH, t0=t0)
+    report(f"SA over 2 gloo ranks ({sa_stats['route']}: by design, chosen "
+           "when the step is built)", sa_stats, TRAIN_BATCH, t0=t0)
+    if sa_stats["route"] != "gloo group (uncaptured)":
+        raise AssertionError(f"gloo route: {sa_stats['route']}")
     launches += sa_stats["fused_head_launches"]
     print(f"  head launches in rank 0's validations: "
           f"{sa_stats['fused_head_launches']}")
@@ -4034,12 +4627,14 @@ def dp_phase(card, work, ao_root):
     if (max(worst.values()) > GRAD_RTOL
             or set(got["grads"]) != set(want["grads"])):
         raise AssertionError(f"two gloo ranks against one card: {worst}")
-    report("UNet-LSTM over 2 gloo ranks", ao_stats, DP_WINDOWS)
+    report(f"UNet-LSTM over 2 gloo ranks ({ao_stats['route']})", ao_stats,
+           DP_WINDOWS)
     falling("UNet-LSTM over 2 gloo ranks", ao_cfgs["dp"].checkpoint_dir)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     _, _, _, stats = tao.train(ao_cfgs["single"], progress_every=1000)
-    report("UNet-LSTM, single card", stats, DP_WINDOWS, time.time() - t0)
+    report(f"UNet-LSTM, single card ({stats['route']})", stats, DP_WINDOWS,
+           time.time() - t0)
     falling("UNet-LSTM, single card", ao_cfgs["single"].checkpoint_dir)
 
     # the CLI on one card refuses two ranks, naming the card count
@@ -4110,6 +4705,26 @@ def sort_probe(card):
         print(f"  n = {n}: " + "; ".join(row), flush=True)
 
 
+def training_only(card, kernels, fh, bf):
+    """``--training``: the kernels' build, then phases 7, 9 (the
+    propagation and the aortic trainer) and 13 alone, on fresh data; no
+    result line."""
+    build_phase(kernels)
+    work = tempfile.mkdtemp(prefix="chip_smoke_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        train_phase(card, work, fh)
+        print(f"  phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        root, ao_truth, _ = propagation_phase(card, work, bf)
+        ao_train_phase(card, root, ao_truth, work)
+        print(f"  phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+        dp_phase(card, work, root)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4136,6 +4751,10 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["--sort_probe"]:
         sort_probe(card)
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--training"]:
+        training_only(card, kernels, fh, bf)
         print(card_line())
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--forward_vs":
@@ -4219,6 +4838,9 @@ def main() -> int:
         "ingestion": {"launches": ingest_launches["fused_head"]},
         "demo": {"launches": demo_launches["fused_head"]},
         "mesh": {"launches": mesh_launches["fused_head"]},
+        # phase 7: the graphs route's validation programs and the trained
+        # bundle's deploy
+        "training": {"launches": train_launches},
         "data_parallel": {"launches": dp_launches}}]
     # the B-spline kernels: launches on the cohort's path and times at the
     # SA strain path's 96^2 (the series of earlier slices), and under

@@ -1273,3 +1273,355 @@ def test_graphed_engine_programs_bounded_and_released(card):
     eng.release_programs()
     assert eng.programs() == []
     assert torch.cuda.memory_reserved(card) < before
+
+
+# --- the trainers' programs (CUDA graphs) ----------------------------------
+
+def _fcn_pool_case(K=3, B=16, size=64, bf16=True):
+    """The FCN production step at small size: a 3-level FCN at the
+    released filters, channels-last, a float16 slice pool and (K, B) index
+    batches, the device augmenter (``distributed.replica_steps``'s
+    keywords)."""
+    case = _dp_case(K=K, B=B, size=size)
+    if not bf16:
+        case["make_loss"] = functools.partial(
+            case["make_loss"].func, **{**case["make_loss"].keywords,
+                                       "compute_dtype": None})
+    return case
+
+
+def _fcn_reference_case(K=1, B=12, size=64):
+    """The FCN reference step: float32, host-augmented batches (here
+    random), one step a call."""
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+
+    net = _random_fcn(n_level=3)
+    rng = np.random.RandomState(2)
+    return dict(net=net, make_loss=functools.partial(tsa.make_fcn_loss,
+                                                     cfg=net.cfg),
+                batches={"image": rng.rand(K, B, size, size, 1).astype(
+                    np.float32),
+                         "label": rng.randint(0, 4, (K, B, size, size))
+                         .astype(np.int32)},
+                seeds=list(range(1, K + 1)), builder="single",
+                channels_last=True)
+
+
+def _ao_train_case(model, K=2, B=4, size=64, joint=False):
+    """The aortic steps at small widths: the U-Net on window-grouped
+    float16 batches, or the UNet-LSTM (phase 2: Adam over the LSTM, the
+    U-Net frozen, unless ``joint``) from a window pool; bf16, the device
+    augmenter."""
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+
+    cfg = tao.AoTrainConfig(model=model, num_filter=8, num_level=3,
+                            num_hidden=8, weight_R=2, image_size=size,
+                            joint_train=joint, device="cuda")
+    _, net, _ = tao.init_ao_model(cfg, torch.Generator().manual_seed(3))
+    make_loss = functools.partial(tao.make_ao_loss, cfg,
+                                  device_augment=True,
+                                  compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(4)
+    tw = cfg.time_window
+    case = dict(net=net, make_loss=make_loss, seeds=list(range(1, K + 1)),
+                make_optimizer=functools.partial(tao.make_ao_optimizer, cfg),
+                channels_last=True)
+    if model == "UNet":
+        case.update(builder="multi", batches={
+            "image": rng.rand(K, B, tw, size, size, 1).astype(np.float16),
+            "label": rng.randint(0, 3, (K, B, tw, size, size)).astype(
+                np.uint8)})
+        return case
+    pool = (rng.rand(3, 6, size, size).astype(np.float16),
+            rng.randint(0, 3, (3, 6, size, size)).astype(np.uint8))
+    tidx = ((rng.randint(0, 6, (K, B, 1)) + np.arange(tw)) % 6).astype(
+        np.int32)
+    case.update(builder="pool_window", pool=pool, batches={
+        "slot": rng.randint(0, 3, (K, B)).astype(np.int32), "tidx": tidx,
+        "lidx": tidx})
+    return case
+
+
+TRAIN_CASES = {
+    "fcn_production": _fcn_pool_case,
+    "fcn_reference": _fcn_reference_case,
+    "unet": functools.partial(_ao_train_case, "UNet"),
+    "unet_lstm_phase2": functools.partial(_ao_train_case, "UNet-LSTM"),
+    "unet_lstm_joint": functools.partial(_ao_train_case, "UNet-LSTM",
+                                         joint=True),
+}
+
+
+def _flat(result) -> dict:
+    """A ``replica_steps`` result as {name: tensor}: losses, aux, the last
+    step's gradients, every parameter and buffer, the Adam state."""
+    out = {"losses": result["losses"]}
+    out.update({f"aux.{k}": v for k, v in result["aux"].items()})
+    out.update({f"grad.{k}": v for k, v in result["grads"].items()})
+    out.update({f"state.{k}": v for k, v in result["state"].items()})
+    for i, st in result["adam"]["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def _spread(a: dict, b: dict) -> dict:
+    assert a.keys() == b.keys()
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a}
+
+
+def _train_on_routes(card, case, calls=3):
+    """The case's ``calls`` K-step calls from the same start on the eager
+    route, through the graphs (the first call eager, then captured; later
+    calls replayed) and on the eager route again: their flattened
+    results."""
+    out = []
+    for name in ("eager", "graphs", "eager"):
+        with (programs._eager_route() if name == "eager"
+              else contextlib.nullcontext()):
+            out.append(_flat(_replica_steps(case, card, calls)))
+    return out
+
+
+def _replica_steps(case, card, calls):
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    return distributed.replica_steps(None, **case, device=card, calls=calls)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TRAIN_CASES))
+def test_graphed_train_steps_are_bitwise_the_eager_route(card, name):
+    """Three K-step calls of each trainer's step (the FCN production pool
+    step, K = 3, bf16; the reference's single f32 step; the U-Net's and
+    the UNet-LSTM's, phase 2 and joint, the ConvLSTM's scan forward and
+    backward inside) through the graphs against the eager route from the
+    same start: the losses, aux, gradients, parameters, BatchNorm buffers
+    and Adam state bit for bit.  cuDNN is held to its deterministic
+    algorithms for the comparison: with its default ones the eager route
+    is not bitwise against itself here (the f32 FCN's and the ConvLSTM's
+    backward), and the eager route run twice is the control."""
+    with _deterministic_cudnn():
+        eager, graphs, again = _train_on_routes(card, TRAIN_CASES[name]())
+    assert len(eager) > 20
+    assert {k: v for k, v in _spread(eager, again).items() if v} == {}
+    assert {k: v for k, v in _spread(graphs, eager).items() if v} == {}
+    assert torch.isfinite(graphs["losses"]).all()
+
+
+@pytest.mark.cuda
+def test_graphed_nccl_world_of_one_replays_bitwise(card):
+    """A world of one NCCL rank runs the DP pool step as graphs with the
+    gradient all-reduce captured (three calls: eager, capture, replays)
+    and leaves what the single card's graphs leave, bit for bit (cuDNN
+    deterministic in both, as the existing world-of-one test has it)."""
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    case = dict(_fcn_pool_case(K=2, B=8), calls=3)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = distributed.run(distributed.replica_steps, (), ["cuda:0"],
+                              backend="nccl", kwargs=case)
+        want = distributed.replica_steps(None, **case, device=card)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert got["route"] == "nccl group (graphs)"
+    assert want["route"] == "single"
+    a, b = _flat(got), _flat(want)
+    assert {k: v for k, v in _spread(a, b).items() if v} == {}
+
+
+@pytest.mark.cuda
+def test_gloo_rank_on_the_card_runs_uncaptured(card):
+    """A gloo group's steps run uncaptured on the card, chosen when the
+    step is built (gloo stages CUDA tensors through the host); the
+    result is the single card's to the two-rank test's bounds."""
+    from ukbb_cardiac_tpu_torch.train import distributed
+
+    case = dict(_fcn_pool_case(K=2, B=8, bf16=False), calls=2)
+    got = distributed.run(distributed.replica_steps, (), ["cuda:0"],
+                          backend="gloo", kwargs=case)
+    assert got["route"] == "gloo group (uncaptured)"
+    want = distributed.replica_steps(None, **case, device=card)
+    np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(),
+                               rtol=1e-5)
+
+
+def _head_launch_count():
+    return tfh.fused_head.launches
+
+
+@pytest.mark.cuda
+def test_graphed_validations_are_bitwise_the_eager_route(card):
+    """The SA validation program (fold and pack on the device, encoder,
+    head kernel, argmax) between training steps, and the aortic
+    validation loss of a jointly trained UNet-LSTM (its U-Net's buffers
+    saved and restored inside), through the graphs against the eager
+    route: labels and losses bitwise, the head kernel's launches equal,
+    the U-Net's buffers unchanged by the evaluation."""
+    from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
+    from ukbb_cardiac_tpu_torch.train import ao as tao
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps as tsteps
+
+    images = np.random.RandomState(5).rand(3, 64, 96, 1).astype(np.float32)
+    runs = {}
+    for name in ("eager", "graphs"):
+        net = _random_fcn(n_level=3).to(card,
+                                        memory_format=torch.channels_last)
+        cache = ProgramCache()
+        step = tsteps.make_train_step(
+            tsa.make_fcn_loss(net, net.cfg),
+            tsteps.Adam(net.parameters(), lr=1e-2), programs=cache)
+        batch = {"image": torch.from_numpy(images[:, :, :64]).to(card),
+                 "label": torch.from_numpy(images[:, :, :64, 0] > 0.5).to(
+                     card, torch.int32)}
+        labels, before = [], _head_launch_count()
+        with (programs._eager_route() if name == "eager"
+              else contextlib.nullcontext()):
+            for i in range(4):
+                labels.append(tsa.validation_predict(net, images, card,
+                                                     cache))
+                step(batch, i + 1)
+        runs[name] = (labels, _head_launch_count() - before)
+        if name == "graphs":
+            assert any(p.key[0] == ("sa_validation",) and p.replays == 3
+                       for p in cache.programs())
+        cache.clear()
+    (eager, n_eager), (graphs, n_graphs) = runs["eager"], runs["graphs"]
+    assert all(np.array_equal(a, b) for a, b in zip(eager, graphs))
+    assert not np.array_equal(eager[0], eager[-1])  # the head refolds
+    assert n_eager == n_graphs == 4 * 3
+
+    case = _ao_train_case("UNet-LSTM", joint=True)
+    cfg = case["make_loss"].args[0]
+    net = case["net"].to(card, memory_format=torch.channels_last)
+    eval_loss = tao.make_ao_loss(cfg, net, train=False)
+    tw = cfg.time_window
+    rng = np.random.RandomState(6)
+    batch = {"image": torch.from_numpy(rng.rand(2, tw, 64, 64, 1).astype(
+                 np.float32)).to(card),
+             "label": torch.from_numpy(rng.randint(0, 3, (2, tw, 64, 64))
+                                       .astype(np.int32)).to(card)}
+    buffers = [b.clone() for b in net.unet.buffers()]
+    with programs._eager_route():
+        want = tsteps.make_eval_step(lambda b: eval_loss(b, 0))(batch)
+    cache = ProgramCache()
+    step = tsteps.make_eval_step(lambda b: eval_loss(b, 0), programs=cache)
+    for _ in range(3):
+        got = step(batch)
+        assert torch.equal(got[0], want[0])
+        for k, v in want[1].items():
+            assert torch.equal(got[1][k], v), k
+    assert [p.replays for p in cache.programs()] == [2]
+    assert all(torch.equal(a, b) for a, b in zip(buffers,
+                                                 net.unet.buffers()))
+    cache.clear()
+
+
+@pytest.mark.cuda
+def test_resume_after_a_graphed_chunk_continues_bitwise(card, tmp_path):
+    """Two graphed K-step calls of the FCN production step, a checkpoint
+    (the bundle both packages read, Adam state included), a fresh net and
+    optimizer restored from it as the trainer restores them (programs
+    built after ``load_adam_leaves``), two more graphed calls: bitwise
+    the same as four calls straight through."""
+    from ukbb_cardiac_tpu_torch.ckpt import convert, store
+    from ukbb_cardiac_tpu_torch.train import device_pool
+    from ukbb_cardiac_tpu_torch.train import sa as tsa
+    from ukbb_cardiac_tpu_torch.train import steps as tsteps
+
+    case = _fcn_pool_case(K=2, B=8)
+    img, lab = (torch.from_numpy(a).to(card) for a in case["pool"])
+    batches = {k: torch.from_numpy(v).to(card)
+               for k, v in case["batches"].items()}
+    names = convert.fcn_names(case["net"].cfg)
+    layout = convert.fcn_layout(names, case["net"].cfg)
+
+    def start(net, optimizer):
+        step = device_pool.make_pool_slice_multi_step(
+            case["make_loss"](net), optimizer)
+        return lambda c: step(img, lab, batches, [2 * c + 1, 2 * c + 2])
+
+    def fresh():
+        net = _copy_net(case["net"]).to(card,
+                                       memory_format=torch.channels_last)
+        return net, tsteps.Adam(net.parameters(), lr=1e-3)
+
+    net, opt = fresh()
+    call = start(net, opt)
+    straight = [call(c)[0] for c in range(4)]
+    want = {k: v.clone() for k, v in net.state_dict().items()}
+    want_adam = [opt.state[p]["exp_avg_sq"].clone() for p in net.parameters()]
+
+    net, opt = fresh()
+    call = start(net, opt)
+    first = [call(c)[0] for c in range(2)]
+    path = str(tmp_path / "model-4.npz")
+    tsa.save_checkpoint(path, net, names, opt, layout, {"iteration": 4})
+    kind, mcfg, bnames, params, state, _ = store.load_model_with_extra(path)
+    net = convert.fcn_from_jax(params, state, bnames, mcfg).to(
+        card, memory_format=torch.channels_last)
+    opt = tsteps.Adam(net.parameters(), lr=1e-3)
+    convert.load_adam_leaves(opt, net, layout, store.load_opt_state(path))
+    assert all(st["step"].device == card or st["step"].is_cuda
+               for st in opt.state.values())
+    call = start(net, opt)
+    second = [call(c)[0] for c in range(2, 4)]
+    assert all(torch.equal(a, b) for a, b in zip(straight, first + second))
+    for k, v in want.items():
+        assert torch.equal(net.state_dict()[k], v), k
+    assert all(torch.equal(opt.state[p]["exp_avg_sq"], v)
+               for p, v in zip(net.parameters(), want_adam))
+
+
+def _copy_net(net):
+    import copy
+
+    return copy.deepcopy(net)
+
+
+_TORCH_ADAM_CAPTURE = """
+import numpy as np, torch
+from ukbb_cardiac_tpu_torch.models import fcn as tfcn
+from ukbb_cardiac_tpu_torch.train import sa as tsa, steps as tsteps
+cfg = tfcn.FCNConfig(n_class=4, n_level=3, n_filter=(16, 32, 64),
+                     n_block=(2, 2, 3))
+net = tfcn.FCN(cfg).cuda()
+step = tsteps.make_train_step(tsa.make_fcn_loss(net, cfg),
+                              torch.optim.Adam(net.parameters(), lr=1e-3))
+batch = {"image": torch.rand(4, 64, 64, 1, device="cuda"),
+         "label": torch.zeros(4, 64, 64, dtype=torch.int32, device="cuda")}
+try:
+    step(batch, 1)  # runs eagerly, then captures
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+else:
+    print("no error")
+"""
+
+
+@pytest.mark.cuda
+def test_a_train_step_that_cannot_be_captured_raises(card):
+    """A step whose optimizer refuses a capture (``torch.optim.Adam``
+    without ``capturable``) raises at its first call, which runs eagerly
+    and then captures; nothing falls back to the eager route (in a
+    process of its own, whose CUDA context the invalidated capture leaves
+    behind)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _TORCH_ADAM_CAPTURE],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:"), out.stdout

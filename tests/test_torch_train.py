@@ -477,7 +477,7 @@ def test_adam_with_schedule_matches_optax():
         jw = optax.apply_updates(jw, upd)
         np.testing.assert_allclose(w.detach().numpy(), np.asarray(jw),
                                    rtol=1e-6, atol=(i + 1) * 1e-5 * 1e-2)
-    assert tsteps.adam_with_schedule([w], 1e-3).__class__ is torch.optim.Adam
+    assert tsteps.adam_with_schedule([w], 1e-3).__class__ is tsteps.Adam
     # the schedule through the data-parallel step in a group of one
     # process: its all-reduce and division by one change nothing
     import tempfile

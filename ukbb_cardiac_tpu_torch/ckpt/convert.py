@@ -318,11 +318,12 @@ def _adam_order(layout: Layout) -> Layout:
 
 def adam_leaves(optimizer: torch.optim.Adam, net: torch.nn.Module,
                 layout: Layout) -> List[np.ndarray]:
-    """A ``torch.optim.Adam``'s state -> the leaves of the
-    ``optax.adam`` state (``chain(scale_by_adam, scale_by_learning_rate)``)
-    in its flattening order: ``count`` (int32), ``mu``'s leaves, then
-    ``nu``'s, each in the params pytree's sorted-key order, kernels
-    HWIO."""
+    """An Adam's state (the port's ``train.steps.Adam`` or a
+    ``torch.optim.Adam``) -> the leaves of the ``optax.adam`` state
+    (``chain(scale_by_adam, scale_by_learning_rate)``) in its flattening
+    order: ``count`` (int32), ``mu``'s leaves, then ``nu``'s, each in the
+    params pytree's sorted-key order, kernels HWIO.  The step count is
+    read from the device here, at checkpoint time only."""
     params = dict(net.named_parameters())
     order = _adam_order(layout)
     mu, nu, step = [], [], 0
@@ -343,7 +344,9 @@ def load_adam_leaves(optimizer: torch.optim.Adam, net: torch.nn.Module,
                      layout: Layout, leaves) -> None:
     """The inverse of :func:`adam_leaves`: set ``optimizer``'s per-
     parameter ``step``, ``exp_avg`` and ``exp_avg_sq`` from optax leaves
-    (on each parameter's device, in its memory format)."""
+    (each on its parameter's device, the moments in its memory format),
+    before the trainer's programs are built: they read these tensors by
+    address."""
     params = dict(net.named_parameters())
     order = _adam_order(layout)
     if len(leaves) != 1 + 2 * len(order):
@@ -355,7 +358,8 @@ def load_adam_leaves(optimizer: torch.optim.Adam, net: torch.nn.Module,
     for i, (key, _, path) in enumerate(order):
         p = params[key]
         optimizer.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32),
+            "step": torch.tensor(count, dtype=torch.float32,
+                                 device=p.device),
             # in the parameter's own memory format (channels-last too)
             "exp_avg": torch.empty_like(p).copy_(to_port(leaves[1 + i],
                                                          path)),

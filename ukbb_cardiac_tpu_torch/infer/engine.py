@@ -96,10 +96,10 @@ class SegmentationModel:
     ResNet-FCN) and its folded head weights, or a 2D U-Net (``head``
     None).
     :meth:`forward` maps (N, X, Y, C) images to channels-first float32
-    logits (N, n_class, X, Y), eagerly: the trainer's validation refolds
-    the head after every update, which a captured graph would not see
-    (the engines' programs capture it, over weights that do not
-    change)."""
+    logits (N, n_class, X, Y), eagerly (the engines' programs capture it,
+    over weights that do not change; the trainer's validation is a
+    program of its own that folds and packs the head on the card at
+    every call, ``train/sa.py::validation_predict``)."""
 
     net: FCN | UNet
     head: HeadWeights | None

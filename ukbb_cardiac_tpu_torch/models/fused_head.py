@@ -105,6 +105,61 @@ def weight_fragments(W: np.ndarray, chained: bool) -> np.ndarray:
                      lo[rows, cols], lo[rows + 4, cols]], axis=-1)
 
 
+def tf32_round_torch(x: torch.Tensor) -> torch.Tensor:
+    """:func:`tf32_round` as integer bit operations on an int32 view, on
+    ``x``'s device (two's complement: the same bits as the uint32 sum)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def weight_fragments_torch(W: torch.Tensor, chained: bool) -> torch.Tensor:
+    """:func:`weight_fragments` as torch ops on ``W``'s device, bitwise
+    the host's: the zero padding, CHAIN_ORDER (within each block of 8
+    rows, the even rows then the odd) and the lane order are views and
+    permutes, the TF32 split :func:`tf32_round_torch`."""
+    K, N = W.shape
+    if N % 8:
+        raise ValueError(f"fragment columns must be a multiple of 8, got {N}")
+    Kp = -(-K // 8) * 8
+    Wp = torch.nn.functional.pad(W.float(), (0, 0, 0, Kp - K))
+    if chained:
+        Wp = Wp.view(Kp // 8, 4, 2, N).transpose(1, 2).reshape(Kp, N)
+    hi = tf32_round_torch(Wp)
+    lo = tf32_round_torch(Wp - hi)
+
+    def lanes(x, half):
+        # (KB, NB, 32): lane 4g + t holds x[8kb + 4 half + t, 8nb + g]
+        x = x.view(Kp // 8, 8, N // 8, 8)[:, 4 * half:4 * half + 4]
+        return x.permute(0, 2, 3, 1).reshape(Kp // 8, N // 8, 32)
+
+    return torch.stack([lanes(hi, 0), lanes(hi, 1), lanes(lo, 0),
+                        lanes(lo, 1)], dim=-1)
+
+
+_TAPS: Dict = {}
+
+
+def _tap_tables(n_level: int, X: int, Y: int, device):
+    """The bilinear tap tables of :meth:`HeadWeights.taps`, made once per
+    (levels, X, Y, device) and kept (read-only)."""
+    key = (n_level, X, Y, str(device))
+    if key not in _TAPS:
+        idx, wts = [], []
+        for l in range(1, n_level):
+            for n_out in (X, Y):
+                A = L._upsample_matrix(n_out >> l, 2 ** l)
+                for row in A:
+                    nz = np.flatnonzero(row)
+                    if not 1 <= len(nz) <= 2:
+                        raise ValueError(f"upsample row with {len(nz)} taps")
+                    i0, i1 = nz[0], nz[-1]
+                    idx.append((i0, i1))
+                    wts.append((row[i0], row[i1] if i1 != i0 else 0.0))
+        _TAPS[key] = (torch.tensor(idx, dtype=torch.int32, device=device),
+                      torch.tensor(wts, dtype=torch.float32, device=device))
+    return _TAPS[key]
+
+
 @dataclass
 class HeadWeights:
     """The head's folded float32 weights, and the kernel's copies of them.
@@ -166,30 +221,39 @@ class HeadWeights:
             self._dev[key] = torch.from_numpy(flat).to(device)
         return self._dev[key]
 
+    def pack_on_device(self) -> torch.Tensor:
+        """:meth:`packed`'s buffer made by torch ops on the weights' own
+        device (:func:`weight_fragments_torch`), bitwise the host's
+        packing, and kept as these weights' packing for that device.
+        Nothing goes through the host, so a CUDA graph can hold it: the
+        trainer's validation program folds and packs the live
+        parameters every call (``train/sa.py``)."""
+        nc, pad = self.n_class, KERNEL_CLASS_PAD
+        Wout = torch.nn.functional.pad(self.Wout.float(), (0, pad - nc))
+        bout = torch.nn.functional.pad(self.bout.float(), (0, pad - nc))
+        sd = self.same_dim
+        parts = [weight_fragments_torch(self.Wsd[0], chained=False),
+                 weight_fragments_torch(self.W1[:sd], chained=True),
+                 weight_fragments_torch(self.W2, chained=True),
+                 weight_fragments_torch(Wout, chained=True),
+                 self.bsd[0], self.b1, self.b2, bout]
+        for l in range(1, self.n_level):
+            parts += [weight_fragments_torch(self.Wsd[l], chained=False),
+                      weight_fragments_torch(self.W1[l * sd:(l + 1) * sd],
+                                             chained=True),
+                      self.bsd[l]]
+        flat = torch.cat([p.float().reshape(-1) for p in parts])
+        self._dev[("packed", str(flat.device))] = flat
+        return flat
+
     def taps(self, X: int, Y: int, device) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
         """Bilinear tap tables for an (X, Y) level-0 grid: for each coarse
         level l = 1.., X entries then Y entries of (index0, index1) int32
         and (weight0, weight1) float32 — the non-zeros of each row of
-        ``_upsample_matrix`` (at most two; a missing one has weight 0)."""
-        key = ("taps", X, Y, str(device))
-        if key not in self._dev:
-            idx, wts = [], []
-            for l in range(1, self.n_level):
-                for n_out in (X, Y):
-                    A = L._upsample_matrix(n_out >> l, 2 ** l)
-                    for row in A:
-                        nz = np.flatnonzero(row)
-                        if not 1 <= len(nz) <= 2:
-                            raise ValueError(
-                                f"upsample row with {len(nz)} taps")
-                        i0, i1 = nz[0], nz[-1]
-                        idx.append((i0, i1))
-                        wts.append((row[i0], row[i1] if i1 != i0 else 0.0))
-            self._dev[key] = (
-                torch.tensor(idx, dtype=torch.int32, device=device),
-                torch.tensor(wts, dtype=torch.float32, device=device))
-        return self._dev[key]
+        ``_upsample_matrix`` (at most two; a missing one has weight 0).
+        Shared by every head of as many levels on the device."""
+        return _tap_tables(self.n_level, X, Y, device)
 
 
 def fold_head(net: FCN) -> HeadWeights:

@@ -367,12 +367,28 @@ def _upsample_matrix(n_in: int, factor: int) -> np.ndarray:
     return A
 
 
+_UPSAMPLE_TENSORS = {}
+
+
+def _upsample_tensor(n_in: int, factor: int, dtype, device) -> torch.Tensor:
+    """:func:`_upsample_matrix` as a tensor, made once per (size, factor,
+    dtype, device) and kept: an upload inside a training step would wait
+    for the card, and a CUDA graph could not hold it.  Made outside
+    inference mode (a deploy's first call would otherwise make a tensor
+    that a training step's backward cannot save).  Read-only."""
+    key = (n_in, factor, dtype, str(device))
+    if key not in _UPSAMPLE_TENSORS:
+        with torch.inference_mode(False):
+            _UPSAMPLE_TENSORS[key] = torch.from_numpy(
+                _upsample_matrix(n_in, factor).copy()).to(device=device,
+                                                          dtype=dtype)
+    return _UPSAMPLE_TENSORS[key]
+
+
 def transpose_upsample2d(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Fixed-bilinear ``factor``x upsampling of NCHW ``x``: TF
     conv2d_transpose('SAME') with the frozen ``linear_2d`` kernel
     (``network.py:138-167``), as ``A_x @ x @ A_y^T``."""
-    Ax = torch.from_numpy(_upsample_matrix(x.shape[2], factor).copy())
-    Ay = torch.from_numpy(_upsample_matrix(x.shape[3], factor).copy())
-    Ax = Ax.to(device=x.device, dtype=x.dtype)
-    Ay = Ay.to(device=x.device, dtype=x.dtype)
+    Ax = _upsample_tensor(x.shape[2], factor, x.dtype, x.device)
+    Ay = _upsample_tensor(x.shape[3], factor, x.dtype, x.device)
     return torch.matmul(torch.matmul(Ax, x), Ay.t())

@@ -15,7 +15,10 @@ import torch.nn.functional as F
 
 def _onehot_log_p(logits, labels, n_class: int):
     log_p = F.log_softmax(logits, dim=-1)
-    onehot = F.one_hot(labels.long(), n_class).to(log_p.dtype)
+    # a comparison, not F.one_hot: on the CPU that reads the labels'
+    # range back to the host, which a step under test must not do
+    classes = torch.arange(n_class, device=labels.device)
+    onehot = (labels.long()[..., None] == classes).to(log_p.dtype)
     return log_p, onehot
 
 
@@ -36,17 +39,30 @@ def focal_loss(labels, logits, n_class: int, alpha: float):
     return -torch.mean(torch.sum(alpha_t * onehot * log_p, dim=-1))
 
 
+_WINDOW_WEIGHTS = {}
+
+
 def temporal_window_weights(n_step: int, weight_R: int, weight_r: float,
                             device=None):
     """Triangular window weights w_t = (1 - d/R)^r for |d| <= R else 0,
-    centred at s = (n_step-1)//2 (``network_ao.py:179-195``)."""
-    s = (n_step - 1) // 2
-    w = []
-    for t in range(n_step):
-        d = abs(t - s)
-        w.append(pow(1.0 - float(d) / weight_R, weight_r)
-                 if d <= weight_R else 0.0)
-    return torch.tensor(w, dtype=torch.float32, device=device)
+    centred at s = (n_step-1)//2 (``network_ao.py:179-195``).  Made once
+    per (window, R, r, device) and kept: an upload inside a training
+    step would wait for the card, and a CUDA graph could not hold it.
+    Made outside inference mode, so that a backward can save it.
+    Read-only."""
+    key = (n_step, weight_R, float(weight_r), str(torch.device(
+        device or "cpu")))
+    if key not in _WINDOW_WEIGHTS:
+        s = (n_step - 1) // 2
+        w = []
+        for t in range(n_step):
+            d = abs(t - s)
+            w.append(pow(1.0 - float(d) / weight_R, weight_r)
+                     if d <= weight_R else 0.0)
+        with torch.inference_mode(False):
+            _WINDOW_WEIGHTS[key] = torch.tensor(w, dtype=torch.float32,
+                                                device=device)
+    return _WINDOW_WEIGHTS[key]
 
 
 def weighted_temporal_cross_entropy(logits, labels, n_class: int,

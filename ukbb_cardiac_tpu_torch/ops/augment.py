@@ -14,7 +14,10 @@ random flip along one axis.
   :func:`augment_with_params`, one batched warp for all slices (image
   bilinear, label nearest, as ``resample.affine_transform_2d`` on the JAX
   package's CPU path).  ``augment_with_params`` is the parity seam: a
-  test hands the same drawn parameters to both packages.
+  test hands the same drawn parameters to both packages.  The trainers'
+  steps split the draw (:func:`sample_shard_params`, before a call) from
+  the warp (inside the call's CUDA graph), so a graph never holds a
+  seed.
 
 The aortic (sequence-consistent) augmenters draw one transform per
 window and apply it to every frame of it (``image_utils.py:123-168``):

@@ -31,7 +31,10 @@ transfer, a subject cache and a device-resident cine pool — keep the
 windows the reference would draw.  ``mesh_devices`` N > 1 trains
 data-parallel over N ranks (``train/distributed.py``), as the SA trainer
 does (``train/sa.py``); as in the JAX trainer it needs ``batch_windows``
-divisible by N.
+divisible by N.  On the card each step call (one step or K, either
+phase; the ConvLSTM's scan forward and backward inside it) and the
+validation loss are CUDA graphs of the trainer's own ``ProgramCache``,
+released when :func:`train` ends, as in the SA trainer.
 """
 
 from __future__ import annotations
@@ -53,13 +56,16 @@ from ukbb_cardiac_tpu_torch.models import convlstm, wrappers
 from ukbb_cardiac_tpu_torch.models.fcn import init_weights
 from ukbb_cardiac_tpu_torch.models.layers import batch_norm_group
 from ukbb_cardiac_tpu_torch.models.unet import UNet, UNetConfig
-from ukbb_cardiac_tpu_torch.ops.augment import (aortic_batch_augmenter_torch,
-                                                aortic_data_augmenter)
+from ukbb_cardiac_tpu_torch.ops.augment import (aortic_augment_with_params,
+                                                aortic_data_augmenter,
+                                                sample_shard_params)
 from ukbb_cardiac_tpu_torch.ops.crop import crop_image
 from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity,
                                                   rescale_intensity)
+from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
 from ukbb_cardiac_tpu_torch.train import steps as steps_lib
-from ukbb_cardiac_tpu_torch.train.sa import SubjectCache
+from ukbb_cardiac_tpu_torch.train.sa import (SubjectCache, make_steps,
+                                             program_stats)
 
 KINDS = {"UNet": "unet", "UNet-LSTM": "unet_lstm",
          "Temporal-UNet": "temporal_unet"}
@@ -446,7 +452,8 @@ def make_ao_loss(cfg: AoTrainConfig, net: torch.nn.Module,
     statistics are left as they were.
 
     ``device_augment``: the window-consistent affine runs on the device
-    from a generator seeded with the step's ``seed``; UNet batches then
+    from a generator seeded with the step's ``seed`` (``loss_fn.draw`` and
+    ``loss_fn.apply``, as ``train.sa.make_fcn_loss``); UNet batches then
     arrive grouped by window (N, T, X, Y, 1) and fold after it.
     ``group``: the process group of a data-parallel step, the batch this
     rank's equal shard of windows: global BatchNorm statistics,
@@ -486,24 +493,33 @@ def make_ao_loss(cfg: AoTrainConfig, net: torch.nn.Module,
                                                      **kw)
         return loss, pred[:, s], labels[:, s]
 
-    def loss_fn(batch, seed: int):
+    def draw(seed: int, n: int, device):
+        gen = generators.get(device)
+        if gen is None:
+            gen = generators[device] = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return sample_shard_params(gen, n, shift, rotate, scale, intensity,
+                                   device, shard)
+
+    def apply(batch, draws):
         # compact batches (f16 image / uint8 label) are cast here
         images = batch["image"].float()
         labels = batch["label"].to(torch.int32)
-        if device_augment:
-            gen = generators.get(images.device)
-            if gen is None:
-                gen = generators[images.device] = torch.Generator(
-                    device=images.device)
-            gen.manual_seed(seed)
-            images, labels = aortic_batch_augmenter_torch(
-                gen, images, labels, shift, rotate, scale, intensity, flip,
-                shard)
+        if draws is not None:
+            images, labels = aortic_augment_with_params(images, labels,
+                                                        draws, flip)
         with batch_norm_group(net, group):
             loss, pred_fr, label_fr = forward(images, labels)
         return loss, steps_lib.segmentation_aux(pred_fr, label_fr, classes,
                                                 group)
 
+    def loss_fn(batch, seed: int):
+        images = batch["image"]
+        return apply(batch, draw(seed, images.shape[0], images.device)
+                     if device_augment else None)
+
+    loss_fn.draw = draw if device_augment else None
+    loss_fn.apply = apply
     return loss_fn
 
 
@@ -694,24 +710,16 @@ def _train(cfg: AoTrainConfig, K: int, device, max_iterations,
                            flip=False,
                            compute_dtype=torch.bfloat16 if cfg.bf16 else None,
                            group=group)
+    # the trainer's programs (train/steps.py), built after the restore and
+    # the memory format; they read every parameter and state tensor by
+    # address, and go at the end
+    programs = ProgramCache(max_bytes=steps_lib.TRAINER_BYTES)
     # validation runs on rank 0 alone: its statistics are its own batch's
     eval_loss = make_ao_loss(cfg, net, train=False)
-    eval_step = steps_lib.make_eval_step(lambda batch: eval_loss(batch, 0))
-    if cfg.device_windows:
-        from ukbb_cardiac_tpu_torch.train import device_pool
-
-        step = None
-        multi_step = (
-            device_pool.make_pool_window_multi_step(loss_fn, optimizer)
-            if group is None else device_pool.make_pool_window_multi_dp_step(
-                loss_fn, optimizer, group))
-    elif group is None:
-        step = steps_lib.make_train_step(loss_fn, optimizer)
-        multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
-    else:
-        step = steps_lib.make_dp_train_step(loss_fn, optimizer, group)
-        multi_step = steps_lib.make_multi_dp_train_step(loss_fn, optimizer,
-                                                        group)
+    eval_step = steps_lib.make_eval_step(lambda batch: eval_loss(batch, 0),
+                                         programs=programs)
+    step, multi_step = make_steps(loss_fn, optimizer, group, programs,
+                                  cfg.device_windows, "window")
 
     model_dir = os.path.join(cfg.checkpoint_dir, cfg.model_name)
     if lead:
@@ -819,8 +827,11 @@ def _train(cfg: AoTrainConfig, K: int, device, max_iterations,
     try:
         stats = run_chunks(build_input, step, multi_step, cfg.device_windows,
                            0, total, cadences, device, side_work)
+        stats["programs"] = program_stats(programs)
+        stats["route"] = multi_step.route
     finally:
         prefetcher.close()
+        programs.clear()
         if lead:
             log_f.close()
     if lead:

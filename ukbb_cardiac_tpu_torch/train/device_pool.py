@@ -164,28 +164,37 @@ def _gather_windows(flat_img, flat_lab, ib, t_max):
             "label": flat_lab[base + ib["lidx"].long()]}
 
 
-def _make_pool_multi_step(loss_fn, optimizer, gather, group=None):
-    """The one K-step body the four pool steps share: flatten the pool,
-    ``gather`` the K batches from it by index and run
-    ``steps.make_multi_train_step`` (``make_multi_dp_train_step`` in a
-    rank of ``group``) on them.  The variants differ only in the gather
-    and the step builder."""
+def _make_pool_multi_step(loss_fn, optimizer, gather, group=None,
+                          programs=None):
+    """The one K-step body the four pool steps share:
+    ``steps.make_multi_train_step``'s (``make_multi_dp_train_step``'s in
+    a rank of ``group``), each step's batch gathered by index from the
+    pool inside the call.  The variants differ only in the gather and
+    the group.  On the card the call is one program that reads the pool
+    by address (its key holds the pool's addresses): only the (K, B[,
+    TW]) indices and the augmentation's draws are copied in, never the
+    pool, whose in-place uploads on the step's stream are ordered before
+    the replay."""
     from ukbb_cardiac_tpu_torch.train import steps
 
-    multi = (steps.make_multi_train_step(loss_fn, optimizer)
-             if group is None
-             else steps.make_multi_dp_train_step(loss_fn, optimizer, group))
-
-    def multi_step(pool_img, pool_lab, batches, seeds):
+    def gather_batch(pool, batch):
+        pool_img, pool_lab = pool
         n_slots, t_max = pool_img.shape[:2]
         flat_img = pool_img.reshape((n_slots * t_max,) + pool_img.shape[2:])
         flat_lab = pool_lab.reshape((n_slots * t_max,) + pool_lab.shape[2:])
-        return multi(gather(flat_img, flat_lab, batches, t_max), seeds)
+        return gather(flat_img, flat_lab, batch, t_max)
 
+    body = steps._Steps(loss_fn, optimizer, group, programs, gather_batch)
+
+    def multi_step(pool_img, pool_lab, batches, seeds):
+        return body(batches, seeds, pool=(pool_img, pool_lab))
+
+    multi_step.programs, multi_step.route = body.programs, body.route
     return multi_step
 
 
-def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
+def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer, *,
+                               programs=None):
     """K steps per call whose batches are (slot, z) index pairs gathered
     from the pool on the device.
 
@@ -196,22 +205,25 @@ def make_pool_slice_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     (``train.sa.make_fcn_loss``) and ``steps.make_multi_train_step`` are
     reused unchanged.  Returns ``step(pool_img, pool_lab, batches, seeds)
     -> (losses[K], last_aux)``; release the batches' pins only after this
-    returns."""
-    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices)
+    returns.  ``programs``: as ``steps.make_multi_train_step``."""
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices,
+                                 programs=programs)
 
 
 def make_pool_slice_multi_dp_step(loss_fn, optimizer: torch.optim.Optimizer,
-                                  group):
+                                  group, *, programs=None):
     """Data-parallel :func:`make_pool_slice_multi_step` in one rank of
     ``group``: ``pool_img`` / ``pool_lab`` are this rank's own pool
     (every rank holds every drawn volume, in its own slots) and
     ``batches`` this rank's shard (K, B / world) of the index batches; the
     step is ``steps.make_multi_dp_train_step``'s (``loss_fn`` built for
     ``group``)."""
-    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices, group)
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_slices, group,
+                                 programs)
 
 
-def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
+def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer,
+                                *, programs=None):
     """K steps per call whose batches are (slot, frame-index) tuples
     gathered from the pool on the device — the aortic twin of
     :func:`make_pool_slice_multi_step`.
@@ -222,12 +234,15 @@ def make_pool_window_multi_step(loss_fn, optimizer: torch.optim.Optimizer):
     TW, X, Y) uint8} batches the host window samplers would have shipped
     with ``compact_transfer``, so ``loss_fn`` (``train.ao.make_ao_loss``)
     is reused unchanged."""
-    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows)
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows,
+                                 programs=programs)
 
 
 def make_pool_window_multi_dp_step(loss_fn,
-                                   optimizer: torch.optim.Optimizer, group):
+                                   optimizer: torch.optim.Optimizer, group,
+                                   *, programs=None):
     """Data-parallel :func:`make_pool_window_multi_step`: this rank's own
     pool, its shard of the (K, B, TW) index batches on B — the aortic
     twin of :func:`make_pool_slice_multi_dp_step`."""
-    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows, group)
+    return _make_pool_multi_step(loss_fn, optimizer, _gather_windows, group,
+                                 programs)

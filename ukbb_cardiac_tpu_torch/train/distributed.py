@@ -220,7 +220,7 @@ def replica_steps(rank: Optional[Rank], net: torch.nn.Module,
                   make_loss: Callable, batches: dict, seeds: Sequence[int],
                   make_optimizer: Optional[Callable] = None, lr=1e-3,
                   builder: str = "multi", pool=None, device=None,
-                  channels_last: bool = False) -> dict:
+                  channels_last: bool = False, calls: int = 1) -> dict:
     """K training steps of ``net`` from given global batches: data
     parallel in ``rank`` (each rank takes its rows), or with ``rank``
     None the single-process steps on ``device`` — the yardstick.
@@ -228,14 +228,18 @@ def replica_steps(rank: Optional[Rank], net: torch.nn.Module,
     ``net``: a module, left as it is (a copy trains); ``make_loss(net,
     group=...)`` builds the loss closure (``functools.partial`` of
     ``train.sa.make_fcn_loss`` / ``train.ao.make_ao_loss``);
-    ``make_optimizer(net)`` the optimizer (default Adam at ``lr``);
+    ``make_optimizer(net)`` the optimizer (default ``train.steps.Adam``
+    at ``lr``);
     ``batches``: numpy arrays (K, B, ...), the global batch of each step;
     ``builder``: ``"single"`` (K calls of the one-step builder),
     ``"multi"`` (the K-step builder), ``"pool_slice"`` / ``"pool_window"``
     (``batches`` are index batches into ``pool`` = (image, label) numpy
-    arrays, which every rank holds whole).
+    arrays, which every rank holds whole).  ``calls``: the K steps run
+    that many times over (on the card the first call runs eagerly and
+    captures, later ones replay), the seeds offset by K each time.
 
-    Returns, on the CPU: ``losses`` (K,), the last step's ``aux``, the
+    Returns, on the CPU: ``losses`` (calls x K,), the last step's ``aux``,
+    the route of the step (``step.route``), the
     last step's ``grads`` by parameter name (the averaged ones in a
     rank), the ``state`` dict and the optimizer's ``adam`` state dict."""
     from ukbb_cardiac_tpu_torch.train import device_pool
@@ -248,7 +252,7 @@ def replica_steps(rank: Optional[Rank], net: torch.nn.Module,
         device, memory_format=(torch.channels_last if channels_last
                                else torch.preserve_format))
     optimizer = (make_optimizer(net) if make_optimizer is not None
-                 else torch.optim.Adam(net.parameters(), lr=lr))
+                 else steps_lib.Adam(net.parameters(), lr=lr))
     loss_fn = make_loss(net, group=group)
     if rank is not None:
         batches = {k: take_rows(v, (rank.rank, rank.world), axis=1)
@@ -269,21 +273,29 @@ def replica_steps(rank: Optional[Rank], net: torch.nn.Module,
                 else make(loss_fn, optimizer))
         img, lab = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
                     for a in pool)
-        losses, aux = step(img, lab, batches, seeds)
+
+        def run(seeds):
+            return step(img, lab, batches, seeds)
     elif builder == "multi":
         step = (steps_lib.make_multi_dp_train_step(loss_fn, optimizer, group)
                 if group is not None
                 else steps_lib.make_multi_train_step(loss_fn, optimizer))
-        losses, aux = step(batches, seeds)
+
+        def run(seeds):
+            return step(batches, seeds)
     elif builder == "single":
         step = (steps_lib.make_dp_train_step(loss_fn, optimizer, group)
                 if group is not None
                 else steps_lib.make_train_step(loss_fn, optimizer))
-        out = [step({k: v[i] for k, v in batches.items()}, s)
-               for i, s in enumerate(seeds)]
-        losses, aux = torch.stack([o[0] for o in out]), out[-1][1]
+
+        def run(seeds):
+            out = [step({k: v[i] for k, v in batches.items()}, s)
+                   for i, s in enumerate(seeds)]
+            return torch.stack([o[0] for o in out]), out[-1][1]
     else:
         raise ValueError(f"unknown builder {builder!r}")
+    out = [run([s + c * len(seeds) for s in seeds]) for c in range(calls)]
+    losses, aux = torch.cat([o[0] for o in out]), out[-1][1]
 
     def cpu(value):
         if isinstance(value, torch.Tensor):
@@ -294,8 +306,10 @@ def replica_steps(rank: Optional[Rank], net: torch.nn.Module,
             return type(value)(cpu(v) for v in value)
         return value
 
-    return {"losses": cpu(losses), "aux": cpu(aux),
-            "grads": {k: cpu(p.grad) for k, p in net.named_parameters()
-                      if p.grad is not None},
-            "state": cpu(net.state_dict()),
-            "adam": cpu(optimizer.state_dict())}
+    result = {"losses": cpu(losses), "aux": cpu(aux), "route": step.route,
+              "grads": {k: cpu(p.grad) for k, p in net.named_parameters()
+                        if p.grad is not None},
+              "state": cpu(net.state_dict()),
+              "adam": cpu(optimizer.state_dict())}
+    step.programs.clear()  # the step's own graphs go with it
+    return result

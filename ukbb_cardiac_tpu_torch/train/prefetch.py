@@ -199,10 +199,14 @@ def run_chunks(build_input, step: Callable, multi_step: Callable,
 
     Returns stats: iterations run, and from the end of the first call on
     (cuDNN's autotuning excluded) the step loop's seconds with the side
-    work set aside, the seconds it waited for the next chunk, and the
-    steps it ran.  Before side work at a cadence boundary the card is
-    synchronised, so the queued steps finish inside the loop's window,
-    not in the side work's host sync."""
+    work set aside, the seconds it waited for the next chunk, the steps
+    it ran, and the calls and the host seconds spent in them (``dispatch_s``:
+    on the card a program's copy-in and replay, or an eager call's issue
+    time, until the device queue pushes back).  Before side work at a
+    cadence boundary the card is synchronised, so the queued steps finish
+    inside the loop's window, not in the side work's host sync.  A
+    remainder chunk at a boundary has another K, so it is another
+    program of the step's (``train/steps.py``)."""
     device = torch.device(device)
 
     def sync():
@@ -210,7 +214,7 @@ def run_chunks(build_input, step: Callable, multi_step: Callable,
             torch.cuda.synchronize(device)
 
     stats = {"iterations": 0, "steady_iterations": 0, "steady_s": 0.0,
-             "wait_s": 0.0}
+             "wait_s": 0.0, "steady_calls": 0, "dispatch_s": 0.0}
     t_aside = 0.0  # side-work seconds inside the window
     t_steady = None
     iteration = start
@@ -219,6 +223,7 @@ def run_chunks(build_input, step: Callable, multi_step: Callable,
     while iteration < total:
         t0 = time.time()
         k_now, batches, seeds, release = pending
+        t_call = time.time()
         if pooled:
             losses_k, aux = multi_step(*batches, seeds)
         elif k_now > 1:
@@ -226,6 +231,7 @@ def run_chunks(build_input, step: Callable, multi_step: Callable,
         else:
             loss, aux = step(batches, seeds[0])
             losses_k = loss[None]
+        t_called = time.time()
         release()
         iteration += k_now
         stats["iterations"] += k_now
@@ -234,6 +240,8 @@ def run_chunks(build_input, step: Callable, multi_step: Callable,
             t_steady = time.time()
         else:
             stats["steady_iterations"] += k_now
+            stats["steady_calls"] += 1
+            stats["dispatch_s"] += t_called - t_call
         if iteration < total:
             t_wait = time.time()
             pending = build_input(iteration)

@@ -19,10 +19,14 @@ production options — fixed-size slice batches, K steps per call, device
 augmentation, bf16 activations, compact transfer, a subject cache and a
 device-resident slice pool — keep the batches the reference would draw.
 
-On the card the validation forward is the deploy's
-(``SegmentationModel.forward``: cuDNN encoder and the fused head kernel);
-the head's folded, packed weights are rebuilt at every validation, since
-every update makes them stale.
+On the card each step call (one step, or K) and the validation forward
+are CUDA graphs of the trainer's own ``ProgramCache``, captured at each
+key's first call and released when :func:`train` ends (``train/steps.py``):
+the JAX trainer's jitted step, ``lax.scan`` over K steps and
+``eval_forward``.  The validation forward is the deploy's (cuDNN encoder
+and the fused head kernel); the head's folded, packed weights are
+rebuilt on the device at every validation, since every update makes them
+stale.
 
 ``mesh_devices`` N > 1 trains data-parallel over N ranks
 (``train/distributed.py``; N cards, or N CPU processes with device
@@ -50,11 +54,14 @@ from ukbb_cardiac_tpu_torch.ckpt import convert, store
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.models import fcn as fcn_mod
 from ukbb_cardiac_tpu_torch.models import losses
+from ukbb_cardiac_tpu_torch.models.fused_head import apply_fcn_fused, fold_head
 from ukbb_cardiac_tpu_torch.models.layers import batch_norm_group
-from ukbb_cardiac_tpu_torch.ops.augment import (data_augmenter,
-                                                data_augmenter_torch)
+from ukbb_cardiac_tpu_torch.ops.augment import (augment_with_params,
+                                                data_augmenter,
+                                                sample_shard_params)
 from ukbb_cardiac_tpu_torch.ops.crop import crop_image
 from ukbb_cardiac_tpu_torch.ops.intensity import rescale_intensity
+from ukbb_cardiac_tpu_torch.reg.programs import ProgramCache
 from ukbb_cardiac_tpu_torch.train import steps as steps_lib
 
 N_CLASS = {"sa": 4, "la_2ch": 2, "la_4ch": 3, "la_4ch_seg4": 6}
@@ -356,7 +363,11 @@ def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
     aux)``; the training forward updates the BN moving statistics.
 
     ``device_augment``: the random affine augmentation runs on the device,
-    in the step, from a generator seeded with the step's ``seed``.
+    in the step, from a generator seeded with the step's ``seed``:
+    ``loss_fn.draw(seed, n, device)`` makes a batch of ``n`` rows' draws
+    and ``loss_fn.apply(batch, draws)`` is the loss on them (the step
+    builders draw before a call, ``train/steps.py``); ``loss_fn.draw`` is
+    None without it.
     ``compute_dtype``: activation dtype (default float32); bfloat16 keeps
     params, BN statistics, logits and the loss in float32.
     ``group``: the process group of a data-parallel step
@@ -369,19 +380,20 @@ def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
     shard = steps_lib.group_shard(group)
     classes = [(f"dice_{k}", k) for k in range(1, cfg.n_class)]
 
-    def loss_fn(batch, seed: int):
+    def draw(seed: int, n: int, device):
+        gen = generators.get(device)
+        if gen is None:
+            gen = generators[device] = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return sample_shard_params(gen, n, shift, rotate, scale, intensity,
+                                   device, shard)
+
+    def apply(batch, draws):
         # compact batches (f16 image / uint8 label) are cast here
         image = batch["image"].float()
         label = batch["label"].to(torch.int32)
-        if device_augment:
-            gen = generators.get(image.device)
-            if gen is None:
-                gen = generators[image.device] = torch.Generator(
-                    device=image.device)
-            gen.manual_seed(seed)
-            image, label = data_augmenter_torch(gen, image, label, shift,
-                                                rotate, scale, intensity,
-                                                flip, shard)
+        if draws is not None:
+            image, label = augment_with_params(image, label, draws, flip)
         with batch_norm_group(net, group):
             logits = fcn_mod.apply_fcn(net, image, compute_dtype=dtype,
                                        train=True)
@@ -389,6 +401,13 @@ def make_fcn_loss(net: fcn_mod.FCN, cfg: fcn_mod.FCNConfig,
         pred = torch.argmax(logits.detach(), dim=-1)
         return loss, steps_lib.segmentation_aux(pred, label, classes, group)
 
+    def loss_fn(batch, seed: int):
+        image = batch["image"]
+        return apply(batch, draw(seed, image.shape[0], image.device)
+                     if device_augment else None)
+
+    loss_fn.draw = draw if device_augment else None
+    loss_fn.apply = apply
     return loss_fn
 
 
@@ -556,7 +575,7 @@ def _train(cfg: SATrainConfig, K: int, device, max_iterations,
     # (PERF.md, section 6).
     net = net.to(device, memory_format=torch.channels_last)
     layout = convert.fcn_layout(names, model_cfg)
-    optimizer = torch.optim.Adam(net.parameters(), lr=cfg.learning_rate)
+    optimizer = steps_lib.Adam(net.parameters(), lr=cfg.learning_rate)
     if resume_from:
         leaves = store.load_opt_state(resume_from)
         if leaves is not None:
@@ -565,21 +584,12 @@ def _train(cfg: SATrainConfig, K: int, device, max_iterations,
     loss_fn = make_fcn_loss(net, model_cfg, device_augment=cfg.device_augment,
                             compute_dtype=torch.bfloat16 if cfg.bf16 else None,
                             group=group)
-    if cfg.device_slices:
-        from ukbb_cardiac_tpu_torch.train import device_pool
-
-        step = None
-        multi_step = (
-            device_pool.make_pool_slice_multi_step(loss_fn, optimizer)
-            if group is None else device_pool.make_pool_slice_multi_dp_step(
-                loss_fn, optimizer, group))
-    elif group is None:
-        step = steps_lib.make_train_step(loss_fn, optimizer)
-        multi_step = steps_lib.make_multi_train_step(loss_fn, optimizer)
-    else:
-        step = steps_lib.make_dp_train_step(loss_fn, optimizer, group)
-        multi_step = steps_lib.make_multi_dp_train_step(loss_fn, optimizer,
-                                                        group)
+    # the trainer's programs (train/steps.py): built from here on, after
+    # the weights, the Adam state and the memory format are final; they
+    # read every parameter and state tensor by address, and go at the end
+    programs = ProgramCache(max_bytes=steps_lib.TRAINER_BYTES)
+    step, multi_step = make_steps(loss_fn, optimizer, group, programs,
+                                  cfg.device_slices, "slice")
 
     model_dir = os.path.join(cfg.checkpoint_dir or ".", cfg.model_name)
     if lead:
@@ -648,7 +658,7 @@ def _train(cfg: SATrainConfig, K: int, device, max_iterations,
             v_images, v_labels = get_random_batch(
                 data_list["validation"], cfg.validation_batch_size,
                 image_size=cfg.image_size, rng=val_rng, cache=cache)
-            v_pred = validation_predict(net, v_images, device)
+            v_pred = validation_predict(net, v_images, device, programs)
             rec = {"iteration": iteration, "loss": float(loss),
                    "accuracy": float(aux["accuracy"]),
                    "val_accuracy": float(np.mean(v_pred == v_labels)),
@@ -677,8 +687,11 @@ def _train(cfg: SATrainConfig, K: int, device, max_iterations,
         stats = run_chunks(build_input, step, multi_step, cfg.device_slices,
                            start_iteration, total, cadences, device,
                            side_work)
+        stats["programs"] = program_stats(programs)
+        stats["route"] = multi_step.route
     finally:
         prefetcher.close()
+        programs.clear()
         if lead:
             log_f.close()
     if lead:
@@ -686,18 +699,69 @@ def _train(cfg: SATrainConfig, K: int, device, max_iterations,
     return net, names, model_cfg, stats
 
 
+def make_steps(loss_fn, optimizer, group, programs, pooled: bool,
+               kind: str):
+    """The trainers' (step, multi_step) pair (``prefetch.run_chunks``):
+    the pool's K-step call of ``kind`` ("slice" or "window") when
+    ``pooled`` (step None), else the single and K-step builders; the
+    data-parallel ones in a rank of ``group``.  All are programs of
+    ``programs`` on the card (``train/steps.py``)."""
+    from ukbb_cardiac_tpu_torch.train import device_pool
+
+    if pooled:
+        make = {("slice", False): device_pool.make_pool_slice_multi_step,
+                ("window", False): device_pool.make_pool_window_multi_step,
+                ("slice", True): device_pool.make_pool_slice_multi_dp_step,
+                ("window", True): device_pool.make_pool_window_multi_dp_step}[
+            kind, group is not None]
+        args = (loss_fn, optimizer) + ((group,) if group is not None else ())
+        return None, make(*args, programs=programs)
+    if group is None:
+        return (steps_lib.make_train_step(loss_fn, optimizer,
+                                          programs=programs),
+                steps_lib.make_multi_train_step(loss_fn, optimizer,
+                                                programs=programs))
+    return (steps_lib.make_dp_train_step(loss_fn, optimizer, group,
+                                         programs=programs),
+            steps_lib.make_multi_dp_train_step(loss_fn, optimizer, group,
+                                               programs=programs))
+
+
+def program_stats(programs: ProgramCache) -> list:
+    """Each of a trainer's captured programs: what it computes, its first
+    input's shape (K and the batch for a step), the host seconds of its
+    capture, the bytes its graph's pool reserved, its replays."""
+    return [{"tag": p.key[0][0], "first_input": list(p.key[2][0]),
+             "capture_s": p.capture_s, "reserved": p.reserved,
+             "replays": p.replays}
+            for p in programs.programs() if p.graph is not None]
+
+
 @torch.no_grad()
 def validation_predict(net: fcn_mod.FCN, images: np.ndarray,
-                       device) -> np.ndarray:
+                       device, programs: Optional[ProgramCache] = None
+                       ) -> np.ndarray:
     """Argmax labels (N, X, Y) of the inference forward on (N, X, Y, 1)
-    images, through the deploy's ``SegmentationModel`` (on the card the
-    fused head kernel).  The head's weights are folded and packed afresh
-    from the current parameters on every call."""
-    from ukbb_cardiac_tpu_torch.infer.engine import SegmentationModel
+    images: the deploy's encoder and fused head (on the card the head
+    kernel), the head's BatchNorms folded into its weights and packed
+    afresh from the current parameters on the device on every call (every
+    update makes them stale).  With ``programs`` (the trainer's) on the
+    card the whole forward -- fold, pack, encoder, head kernel, argmax --
+    is one program per batch shape, the JAX trainer's jitted
+    ``eval_forward``."""
+    x = torch.from_numpy(images).to(device)
 
-    model = SegmentationModel.from_fcn(net, device)
-    logits = model.forward(torch.from_numpy(images).to(device))
-    return torch.argmax(logits, dim=1).cpu().numpy()
+    def forward(x):
+        head = fold_head(net)
+        if x.device.type == "cuda":  # the kernel's packing (the CPU's
+            head.pack_on_device()    # plain head reads the folded weights)
+        return (torch.argmax(apply_fcn_fused(net, x, head), dim=1),)
+
+    if programs is None:
+        (labels,) = forward(x)
+    else:
+        (labels,) = programs.run(("sa_validation",), forward, x)
+    return labels.cpu().numpy()
 
 
 def save_checkpoint(path: str, net: fcn_mod.FCN, names, optimizer,
