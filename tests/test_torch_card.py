@@ -1625,3 +1625,42 @@ def test_a_train_step_that_cannot_be_captured_raises(card):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:"), out.stdout
+
+
+@pytest.mark.cuda
+def test_program_spans_around_capture_and_replay(card):
+    """Under the profiler a program opens ``ukbb.program.warmup`` and
+    ``.capture`` at its key's first call and ``.replay`` at each later
+    one; a bound that drops a program opens ``.release``.  The captured
+    function runs inside the warm-up and the capture only, so no span of
+    its own would show at a replay."""
+    from torch.profiler import ProfilerActivity, profile
+    cache = programs.ProgramCache(max_programs=1)
+
+    def fn(x):
+        with torch.profiler.record_function("test.captured"):
+            return (x * 2 + 1,)
+
+    x = torch.arange(8.0, device=card)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            (y,) = cache.run(("double",), fn, x)
+        cache.run(("other",), fn, x[:4])     # drops "double"
+        torch.cuda.synchronize()
+    assert torch.equal(y, x * 2 + 1)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type.name == "CPU"
+             and (e.name.startswith("ukbb.program.")
+                  or e.name == "test.captured")]
+    count = {n: sum(s[0] == n for s in spans) for n in (
+        "ukbb.program.warmup", "ukbb.program.capture",
+        "ukbb.program.replay", "ukbb.program.release", "test.captured")}
+    assert count == {"ukbb.program.warmup": 2, "ukbb.program.capture": 2,
+                     "ukbb.program.replay": 2, "ukbb.program.release": 1,
+                     "test.captured": 4}
+    for name, a, b in spans:
+        if name == "test.captured":
+            assert any(o[0] in ("ukbb.program.warmup",
+                                "ukbb.program.capture")
+                       and o[1] <= a and b <= o[2] for o in spans)

@@ -18,6 +18,37 @@ raises unless ``--device cpu`` is given).  ``--mesh_devices n`` (n > 1)
 splits each subject's registration pairs over ``make_mesh(n,
 device=--device)``: n cards, or n CPU replicas with ``--device cpu``.
 
+``--trace_dir <dir>`` runs the cohort (from the engines' loading to the
+last subject) under ``torch.profiler`` and writes the CPU and card
+timeline to ``<dir>`` as a Chrome trace JSON
+(``utils/timing.py::device_trace``; Perfetto, ``chrome://tracing`` or
+TensorBoard open it).  The program's own spans lie on the card's
+timeline there, every name starting with ``ukbb.``:
+
+- ``ukbb.subject`` around each subject, and ``ukbb.stage.<key>`` around
+  each stage, the stretch that the manifest's ``stage_seconds[<key>]``
+  times (``segment``, ``volumes``, ``wall_thickness``, ``strain``; in
+  full mode also ``segment_la``, ``atrial_volumes``, ``strain_la``,
+  ``aortic``);
+- ``ukbb.io.nifti.load``, ``ukbb.io.nifti.save``, ``ukbb.io.vtk``,
+  ``ukbb.io.csv``: file reads and writes;
+- ``ukbb.engine.dispatch``, ``ukbb.engine.wait``, ``ukbb.deploy.write``:
+  a cine queued on the card, the wait for its labels, and the host work
+  on them around the NIfTI writes;
+- ``ukbb.program.warmup``, ``.capture``, ``.replay``, ``.release``: the
+  CUDA graphs' first calls, captures, replays and released pools;
+- ``ukbb.reg.dispatch``: the strain stage's registration queued;
+- ``ukbb.phenotype.volumes``, ``.qc``, ``.wall_thickness``,
+  ``.strain.crop``, ``.strain.contours``, ``.strain.fetch``,
+  ``.strain.tables``, ``.atrial_volumes``, ``.aortic_qc``,
+  ``.aortic_areas``: each phenotype stage's host work;
+- ``ukbb.kernels.build``: the CUDA kernels compiled at first use.
+
+Without ``--trace_dir`` a span costs one flag read.  ``torch.profiler``
+records the host spans of the thread that started it, which runs every
+subject at ``--workers 1``; with more workers their spans are not in the
+trace (their kernels are).
+
 Usage:
   python -m ukbb_cardiac_tpu_torch.cli.run_cohort --data_dir <dir> \
       --model_path <FCN_sa.npz> --output_dir <csv dir>
@@ -70,12 +101,37 @@ def main(argv=None):
                         help="One past the last subject index (-1 = all)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default) or 'cpu'.")
+    parser.add_argument("--trace_dir", default="",
+                        help="Write a torch.profiler trace (CPU and card, "
+                             "with the program's ukbb.* spans) here as a "
+                             "Chrome trace JSON.")
     args = parser.parse_args(argv)
 
     if args.pressure_csv and not args.model_path_ao:
         parser.error("--pressure_csv is only used by the aortic stage; "
                      "pass --model_path_ao as well")
 
+    from ukbb_cardiac_tpu_torch.utils.timing import device_trace
+
+    with device_trace(args.trace_dir):
+        result = _run(args)
+    n_ok = len(result.fleet.succeeded)
+    print(f"cohort: {n_ok} succeeded, {len(result.fleet.failed)} failed, "
+          f"{len(result.fleet.skipped)} skipped in "
+          f"{result.wall_seconds:.1f}s "
+          f"({result.subjects_per_s:.3f} subjects/s)")
+    if args.manifest:
+        with open(args.manifest, "w") as f:
+            json.dump({**result.fleet.to_manifest(),
+                       "wall_seconds": result.wall_seconds,
+                       "stage_seconds": result.stage_seconds}, f, indent=2)
+    return 0 if not result.fleet.failed else 1
+
+
+def _run(args):
+    """Load the engines, run the cohort, release the engines' programs;
+    returns the :class:`~ukbb_cardiac_tpu_torch.parallel.cohort.
+    CohortResult`."""
     from ukbb_cardiac_tpu_torch import resolve_device
     from ukbb_cardiac_tpu_torch.infer.deploy import load_segmentation_model
     from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
@@ -123,17 +179,7 @@ def main(argv=None):
     # the engines go with this run: their graphs' pools go back now
     for eng in engines.values():
         eng.release_programs()
-    n_ok = len(result.fleet.succeeded)
-    print(f"cohort: {n_ok} succeeded, {len(result.fleet.failed)} failed, "
-          f"{len(result.fleet.skipped)} skipped in "
-          f"{result.wall_seconds:.1f}s "
-          f"({result.subjects_per_s:.3f} subjects/s)")
-    if args.manifest:
-        with open(args.manifest, "w") as f:
-            json.dump({**result.fleet.to_manifest(),
-                       "wall_seconds": result.wall_seconds,
-                       "stage_seconds": result.stage_seconds}, f, indent=2)
-    return 0 if not result.fleet.failed else 1
+    return result
 
 
 if __name__ == "__main__":

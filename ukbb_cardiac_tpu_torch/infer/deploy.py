@@ -29,6 +29,7 @@ from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  SegmentationModel)
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.ops.intensity import rescale_intensity
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 def load_segmentation_model(model_path: str, device=None,
@@ -102,25 +103,31 @@ def _finish_subject_sequence(ctx: dict, seq_name: str, seg4: bool,
     subject while this one computed."""
     prefix = seg_prefix(seq_name, seg4)
     data_dir, nim, orig_image = ctx["data_dir"], ctx["nim"], ctx["image"]
-    pred = ctx["pending"].result().astype(np.int16)
-    ctx["pred"] = pred
-    seg_time = time.time() - ctx["start"]
-    print(f"  Segmentation time = {seg_time:.3f}s")
+    labels = ctx["pending"].result()
+    with span("ukbb.deploy.write"):
+        pred = labels.astype(np.int16)
+        ctx["pred"] = pred
+        seg_time = time.time() - ctx["start"]
+        print(f"  Segmentation time = {seg_time:.3f}s")
 
-    k = {"ED": 0, "ES": es_frame(pred, seq_name, seg4)}
-    print("  ED frame = {0:d}, ES frame = {1:d}".format(k["ED"], k["ES"]))
+        k = {"ED": 0, "ES": es_frame(pred, seq_name, seg4)}
+        print("  ED frame = {0:d}, ES frame = {1:d}".format(k["ED"],
+                                                          k["ES"]))
 
-    if save_seg:
-        print("  Saving segmentation ...")
-        nim2 = nifti.Nifti1Image(pred, nim.affine)
-        nim2.header["pixdim"] = nim.header["pixdim"]
-        nifti.save(nim2, os.path.join(data_dir, f"{prefix}_{seq_name}.nii.gz"))
-        for fr in ("ED", "ES"):
-            nifti.save(nifti.Nifti1Image(orig_image[:, :, :, k[fr]], nim.affine),
-                       os.path.join(data_dir, f"{seq_name}_{fr}.nii.gz"))
-            nifti.save(nifti.Nifti1Image(pred[:, :, :, k[fr]], nim.affine),
-                       os.path.join(data_dir,
-                                    f"{prefix}_{seq_name}_{fr}.nii.gz"))
+        if save_seg:
+            print("  Saving segmentation ...")
+            nim2 = nifti.Nifti1Image(pred, nim.affine)
+            nim2.header["pixdim"] = nim.header["pixdim"]
+            nifti.save(nim2, os.path.join(data_dir,
+                                          f"{prefix}_{seq_name}.nii.gz"))
+            for fr in ("ED", "ES"):
+                nifti.save(nifti.Nifti1Image(orig_image[:, :, :, k[fr]],
+                                             nim.affine),
+                           os.path.join(data_dir, f"{seq_name}_{fr}.nii.gz"))
+                nifti.save(nifti.Nifti1Image(pred[:, :, :, k[fr]],
+                                             nim.affine),
+                           os.path.join(data_dir,
+                                        f"{prefix}_{seq_name}_{fr}.nii.gz"))
     return seg_time
 
 

@@ -62,6 +62,7 @@ from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity,
 from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
                                                   map_shards, split_leading)
 from ukbb_cardiac_tpu_torch.reg import programs
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 AO_SIZE = 256  # fixed aortic grid (deploy_network_ao.py:105)
 KINDS = ("unet_lstm", "temporal_unet", "unet")
@@ -181,6 +182,7 @@ class AorticEngine:
             seq)
         return prob
 
+    @span("ukbb.engine.dispatch")
     @torch.inference_mode()
     def segment_cine_dispatch(self, image: np.ndarray, z_score: bool = True,
                               pad_to: int = AO_SIZE) -> PendingSegmentation:
@@ -383,12 +385,14 @@ def _start_subject_ao(engine: AorticEngine, data_dir: str, seq_name: str,
 
 def _finish_subject_ao(ctx: dict, seq_name: str, save_seg: bool) -> float:
     """Wait for an in-flight aortic subject and write its segmentation."""
-    pred = ctx["pending"].result().astype(np.int32)
-    ctx["pred"] = pred
-    seg_time = time.time() - ctx["start"]
-    if save_seg:
-        _save_seg(ctx["nim"], pred, os.path.join(ctx["data_dir"],
-                                                 f"seg_{seq_name}.nii.gz"))
+    labels = ctx["pending"].result()
+    with span("ukbb.deploy.write"):
+        pred = labels.astype(np.int32)
+        ctx["pred"] = pred
+        seg_time = time.time() - ctx["start"]
+        if save_seg:
+            _save_seg(ctx["nim"], pred,
+                      os.path.join(ctx["data_dir"], f"seg_{seq_name}.nii.gz"))
     print(f"  Segmentation time = {seg_time:.3f}s")
     return seg_time
 

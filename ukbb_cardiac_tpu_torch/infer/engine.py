@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import copy
 import functools
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,6 +56,7 @@ from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
                                                   cycle_to_multiple,
                                                   map_shards, split_leading)
 from ukbb_cardiac_tpu_torch.reg import programs
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
@@ -152,8 +152,9 @@ class PendingSegmentation:
     stream from the cine's upload to the end of the readback (CUDA
     events), or None on the CPU.  With ``stats`` (a
     :class:`~ukbb_cardiac_tpu_torch.infer.transfer.TransferStats`) the
-    readback is recorded there: its bytes, and the wall time ``result()``
-    waited for it (compute still in flight included).
+    readback's bytes are recorded there.  ``result()`` runs inside the
+    profiler span ``ukbb.engine.wait`` (``utils/timing.py``), which times
+    the wait on the profiler's clock.
     """
 
     def __init__(self, packed_host: torch.Tensor, out_shape, bits: int,
@@ -165,15 +166,14 @@ class PendingSegmentation:
         self._stats = stats
         self.device_ms = None
 
+    @span("ukbb.engine.wait")
     def result(self) -> np.ndarray:
-        t0 = time.perf_counter()
         if self._events is not None:
             start, end = self._events
             end.synchronize()
             self.device_ms = start.elapsed_time(end)
         if self._stats is not None:
-            self._stats.record_d2h(self._packed.numel(),
-                                   time.perf_counter() - t0)
+            self._stats.record_d2h(self._packed.numel())
         n = int(np.prod(self._shape))
         # one native pass through a per-byte table (the JAX engine's);
         # the numpy unpack builds a (bytes, 8 / bits) temporary
@@ -385,6 +385,7 @@ class InferenceEngine:
         uint8."""
         return self.segment_sequence_dispatch(image, rescale).result()
 
+    @span("ukbb.engine.dispatch")
     @torch.inference_mode()
     def segment_sequence_dispatch(self, image: np.ndarray,
                                   rescale: str = "percentile"

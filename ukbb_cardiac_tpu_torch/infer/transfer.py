@@ -166,9 +166,10 @@ class BandwidthTracker:
 class TransferStats:
     """Cumulative transfer accounting: on the up-leg the bytes shipped, the
     bytes the raw path would have shipped and the dispatches (packed,
-    delta); on the readback the packed label bytes fetched, the fetches,
-    and the wall time spent waiting for them (compute still in flight
-    included, so an upper bound on the copy)."""
+    delta); on the readback the packed label bytes fetched and the
+    fetches.  The JAX package's ``d2h_seconds`` (the wall time blocked in
+    the fetches) is the profiler span ``ukbb.engine.wait`` here
+    (``utils/timing.py``)."""
 
     h2d_bytes: int = 0
     h2d_raw_bytes: int = 0
@@ -176,7 +177,6 @@ class TransferStats:
     packed_dispatches: int = 0
     delta_dispatches: int = 0
     d2h_bytes: int = 0
-    d2h_seconds: float = 0.0
     d2h_fetches: int = 0
 
     def record_h2d(self, shipped: int, raw: int, plan) -> None:
@@ -188,9 +188,8 @@ class TransferStats:
             if plan.mode == "delta":
                 self.delta_dispatches += 1
 
-    def record_d2h(self, n_bytes: int, seconds: float) -> None:
+    def record_d2h(self, n_bytes: int) -> None:
         self.d2h_bytes += n_bytes
-        self.d2h_seconds += seconds
         self.d2h_fetches += 1
 
     def snapshot(self, bw: Optional[BandwidthTracker] = None) -> dict:
@@ -203,7 +202,6 @@ class TransferStats:
             "packed_dispatches": self.packed_dispatches,
             "delta_dispatches": self.delta_dispatches,
             "d2h_bytes": self.d2h_bytes,
-            "d2h_seconds": round(self.d2h_seconds, 3),
             "d2h_fetches": self.d2h_fetches,
         }
         if bw is not None and bw.mbps is not None:

@@ -18,6 +18,8 @@ import struct
 
 import numpy as np
 
+from ukbb_cardiac_tpu_torch.utils.timing import span
+
 _HDR_SIZE = 348
 _MAGIC_SINGLE = b"n+1\x00"
 
@@ -221,6 +223,7 @@ def read_shape(filename: str) -> tuple:
     return tuple(int(x) for x in dim[1 : 1 + int(dim[0])])
 
 
+@span("ukbb.io.nifti.load")
 def load(filename: str) -> Nifti1Image:
     """Load a ``.nii`` / ``.nii.gz`` file."""
     raw = _read_bytes(filename)
@@ -290,6 +293,7 @@ def _build_header_bytes(image: Nifti1Image) -> bytes:
     return bytes(hdr), data
 
 
+@span("ukbb.io.nifti.save")
 def save(image: Nifti1Image, filename: str) -> None:
     """Save to ``.nii`` / ``.nii.gz``."""
     hdr, data = _build_header_bytes(image)

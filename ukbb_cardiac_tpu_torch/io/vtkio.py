@@ -29,6 +29,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ukbb_cardiac_tpu_torch.utils.timing import span
+
 
 @dataclass
 class PolyData:
@@ -156,6 +158,7 @@ def _save_binary(pd: PolyData, path: str, title: str) -> None:
                 scalar_block(name, data)
 
 
+@span("ukbb.io.vtk")
 def save_polydata(pd: PolyData, path: str, title: str = "ukbb_cardiac_tpu",
                   ascii: bool = False) -> None:
     if ascii:
@@ -268,6 +271,7 @@ def _load_binary(buf: bytes, path: str) -> PolyData:
     return pd
 
 
+@span("ukbb.io.vtk")
 def load_polydata(path: str) -> PolyData:
     with open(path, "rb") as f:
         buf = f.read()

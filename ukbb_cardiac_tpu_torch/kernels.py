@@ -33,6 +33,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from ukbb_cardiac_tpu_torch.utils.timing import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -162,6 +164,7 @@ def _finish(started):
     return log, time.perf_counter() - t0
 
 
+@span("ukbb.kernels.build")
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Build]:
     """Compile every named kernel that has no current build, one ``nvcc``
     per source, all started together.  Raises with the compiler's output

@@ -15,10 +15,15 @@ worker by default: on one H100 three workers ran slower than one, the
 strain stages being bound by the host's launches (PERF.md section 5).
 Every worker issues its work on the default stream.  The per-subject
 files and the aggregate CSVs are the reference CLIs'.
+
+Each subject runs inside the profiler span ``ukbb.subject`` and each
+stage inside ``ukbb.stage.<key>``, the stretch that
+``stage_seconds[<key>]`` times on the host clock (``utils/timing.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -28,6 +33,7 @@ import pandas as pd
 
 from ukbb_cardiac_tpu_torch.parallel.fleet import FleetResult, run_fleet
 from ukbb_cardiac_tpu_torch.parallel.mesh import resolve_device_for
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 class CohortResult:
@@ -47,6 +53,21 @@ class CohortResult:
     def subjects_per_s(self) -> float:
         n = len(self.fleet.succeeded) if self.fleet else 0
         return n / self.wall_seconds if self.wall_seconds > 0 else 0.0
+
+
+@contextlib.contextmanager
+def _stage(stages: Dict[str, float], key: str):
+    """Time the block into ``stages[key]`` (host wall clock; a stage that
+    raises records nothing) inside the span ``ukbb.stage.<key>``."""
+    t0 = time.time()
+    with span("ukbb.stage." + key):
+        yield
+    stages[key] = time.time() - t0
+
+
+def _read_csv(path: str, **kwargs) -> pd.DataFrame:
+    with span("ukbb.io.csv"):
+        return pd.read_csv(path, **kwargs)
 
 
 def process_subject_sa(engine, data_dir: str,
@@ -77,78 +98,80 @@ def process_subject_sa(engine, data_dir: str,
     stages: Dict[str, float] = {}
 
     # --- 1. segmentation (deploy_network.py semantics) --------------------
-    t0 = time.time()
-    seg_name = os.path.join(data_dir, "seg_sa.nii.gz")
-    pred_mem = header_mem = None
-    if not (skip_existing_seg and os.path.exists(seg_name)):
-        ctx = _start_subject_sequence(engine, data_dir, "sa", seg4=False,
-                                      force=not skip_existing_seg)
-        if ctx is not None:
-            _finish_subject_sequence(ctx, "sa", seg4=False, save_seg=True)
-            pred_mem = ctx.get("pred")
-            header_mem = ctx["nim"].header
-    stages["segment"] = time.time() - t0
+    with _stage(stages, "segment"):
+        seg_name = os.path.join(data_dir, "seg_sa.nii.gz")
+        pred_mem = header_mem = None
+        if not (skip_existing_seg and os.path.exists(seg_name)):
+            ctx = _start_subject_sequence(engine, data_dir, "sa", seg4=False,
+                                          force=not skip_existing_seg)
+            if ctx is not None:
+                _finish_subject_sequence(ctx, "sa", seg4=False,
+                                         save_seg=True)
+                pred_mem = ctx.get("pred")
+                header_mem = ctx["nim"].header
 
     # --- 2. ventricular volumes (eval_ventricular_volume.py) --------------
-    t0 = time.time()
-    if pred_mem is not None:
-        # the seg is still in memory: files are outputs, not inter-stage IPC
-        vol_row = ventricular_volume_measures_from_seg(pred_mem, header_mem)
-    else:
-        vol_row = ventricular_volume_measures(
-            os.path.join(data_dir, "sa.nii.gz"), seg_name)
-    stages["volumes"] = time.time() - t0
+    with _stage(stages, "volumes"):
+        if pred_mem is not None:
+            # the seg is still in memory: files are outputs, not
+            # inter-stage IPC
+            vol_row = ventricular_volume_measures_from_seg(pred_mem,
+                                                           header_mem)
+        else:
+            vol_row = ventricular_volume_measures(
+                os.path.join(data_dir, "sa.nii.gz"), seg_name)
 
     # --- 3. wall thickness (eval_wall_thickness.py, QC-gated) -------------
-    t0 = time.time()
-    wt_row = wt_max_row = None
-    seg_ed = os.path.join(data_dir, "seg_sa_ED.nii.gz")
-    qc_ok = os.path.exists(seg_ed) and sa_pass_quality_control(seg_ed)
-    if qc_ok:
-        evaluate_wall_thickness(
-            seg_ed, os.path.join(data_dir, "wall_thickness_ED"))
-        mean_csv = os.path.join(data_dir, "wall_thickness_ED.csv")
-        max_csv = os.path.join(data_dir, "wall_thickness_ED_max.csv")
-        if os.path.exists(mean_csv):
-            wt_row = list(pd.read_csv(mean_csv,
-                                      index_col=0)["Thickness"].values)
-        if os.path.exists(max_csv):
-            wt_max_row = list(pd.read_csv(max_csv,
-                                          index_col=0)["Thickness_Max"].values)
-    stages["wall_thickness"] = time.time() - t0
+    with _stage(stages, "wall_thickness"):
+        wt_row = wt_max_row = None
+        seg_ed = os.path.join(data_dir, "seg_sa_ED.nii.gz")
+        qc_ok = os.path.exists(seg_ed) and sa_pass_quality_control(seg_ed)
+        if qc_ok:
+            evaluate_wall_thickness(
+                seg_ed, os.path.join(data_dir, "wall_thickness_ED"))
+            mean_csv = os.path.join(data_dir, "wall_thickness_ED.csv")
+            max_csv = os.path.join(data_dir, "wall_thickness_ED_max.csv")
+            if os.path.exists(mean_csv):
+                wt_row = list(_read_csv(mean_csv,
+                                        index_col=0)["Thickness"].values)
+            if os.path.exists(max_csv):
+                wt_max_row = list(_read_csv(
+                    max_csv, index_col=0)["Thickness_Max"].values)
 
     # --- 4. strain motion tracking (eval_strain_sax.py) -------------------
-    t0 = time.time()
-    strain_row = None
-    radial_csv = os.path.join(data_dir, "strain_sa_radial.csv")
-    circum_csv = os.path.join(data_dir, "strain_sa_circum.csv")
-    for stale in (radial_csv, circum_csv):
-        # never harvest a previous run's tables if this run's motion
-        # dispatch declines the subject
-        if os.path.exists(stale):
-            os.remove(stale)
-    if qc_ok:
-        motion_dir = os.path.join(data_dir, "cine_motion")
-        os.makedirs(motion_dir, exist_ok=True)
-        try:
-            kwargs = {} if cfg is None else {"cfg": cfg}
-            sctx = start_sa_motion_dispatch(data_dir, motion_dir,
-                                            eval_dice=eval_dice,
-                                            register_batch=register_batch,
-                                            mesh=mesh, device=device,
-                                            **kwargs)
-            if sctx is not None:
-                # motion_dir is deleted below: skip its per-frame VTKs
-                finish_sa_motion(sctx, os.path.join(data_dir, "strain_sa"),
-                                 write_artifacts=False)
-        finally:
-            shutil.rmtree(motion_dir, ignore_errors=True)
-        if os.path.exists(radial_csv) and os.path.exists(circum_csv):
-            df_radial = pd.read_csv(radial_csv, index_col=0)
-            df_circum = pd.read_csv(circum_csv, index_col=0)
-            strain_row = ([df_circum.iloc[i, :].min() for i in range(17)] +
-                          [df_radial.iloc[i, :].max() for i in range(17)])
-    stages["strain"] = time.time() - t0
+    with _stage(stages, "strain"):
+        strain_row = None
+        radial_csv = os.path.join(data_dir, "strain_sa_radial.csv")
+        circum_csv = os.path.join(data_dir, "strain_sa_circum.csv")
+        for stale in (radial_csv, circum_csv):
+            # never harvest a previous run's tables if this run's motion
+            # dispatch declines the subject
+            if os.path.exists(stale):
+                os.remove(stale)
+        if qc_ok:
+            motion_dir = os.path.join(data_dir, "cine_motion")
+            os.makedirs(motion_dir, exist_ok=True)
+            try:
+                kwargs = {} if cfg is None else {"cfg": cfg}
+                sctx = start_sa_motion_dispatch(data_dir, motion_dir,
+                                                eval_dice=eval_dice,
+                                                register_batch=register_batch,
+                                                mesh=mesh, device=device,
+                                                **kwargs)
+                if sctx is not None:
+                    # motion_dir is deleted below: skip its per-frame VTKs
+                    finish_sa_motion(sctx,
+                                     os.path.join(data_dir, "strain_sa"),
+                                     write_artifacts=False)
+            finally:
+                shutil.rmtree(motion_dir, ignore_errors=True)
+            if os.path.exists(radial_csv) and os.path.exists(circum_csv):
+                df_radial = _read_csv(radial_csv, index_col=0)
+                df_circum = _read_csv(circum_csv, index_col=0)
+                strain_row = ([df_circum.iloc[i, :].min()
+                               for i in range(17)] +
+                              [df_radial.iloc[i, :].max()
+                               for i in range(17)])
 
     if result is not None:
         # per-subject slots: no cross-subject races beyond dict insert
@@ -185,7 +208,8 @@ def _run(data_root, subjects, start_idx, end_idx, workers, verbose,
     result = CohortResult()
 
     def one(subject: str):
-        process(os.path.join(data_root, subject), result)
+        with span("ukbb.subject"):
+            process(os.path.join(data_root, subject), result)
 
     t0 = time.time()
     result.fleet = run_fleet(subjects, one, workers=workers, verbose=verbose)
@@ -226,6 +250,7 @@ def run_cohort_sa(data_root: str, engine,
     return result
 
 
+@span("ukbb.io.csv")
 def write_cohort_csvs(result: CohortResult, output_dir: str) -> None:
     """Aggregate CSVs in the reference CLI schemas
     (``eval_ventricular_volume.py:78-81``, ``eval_wall_thickness.py:64-80``,
@@ -295,69 +320,67 @@ def process_subject_full(engines: Dict[str, object], data_dir: str,
         device=device) if engines.get("sa") else {}
 
     # --- LA deploys (deploy_network.py la_2ch / la_4ch / --seg4) ----------
-    t0 = time.time()
-    for seq, seg4 in (("la_2ch", False), ("la_4ch", False),
-                      ("la_4ch", True)):
-        eng = engines.get("seg4" if seg4 else seq)
-        if eng is None:
-            continue
-        ctx = _start_subject_sequence(eng, data_dir, seq, seg4=seg4,
-                                      force=not skip_existing_seg)
-        if ctx is not None:
-            _finish_subject_sequence(ctx, seq, seg4=seg4, save_seg=True)
-    stages["segment_la"] = time.time() - t0
+    with _stage(stages, "segment_la"):
+        for seq, seg4 in (("la_2ch", False), ("la_4ch", False),
+                          ("la_4ch", True)):
+            eng = engines.get("seg4" if seg4 else seq)
+            if eng is None:
+                continue
+            ctx = _start_subject_sequence(eng, data_dir, seq, seg4=seg4,
+                                          force=not skip_existing_seg)
+            if ctx is not None:
+                _finish_subject_sequence(ctx, seq, seg4=seg4, save_seg=True)
 
     # --- atrial volumes (eval_atrial_volume.py) ---------------------------
-    t0 = time.time()
-    atrial_row = atrial_volume_measures(data_dir)
-    stages["atrial_volumes"] = time.time() - t0
+    with _stage(stages, "atrial_volumes"):
+        atrial_row = atrial_volume_measures(data_dir)
 
     # --- LA strain (eval_strain_lax.py) -----------------------------------
-    t0 = time.time()
-    la_strain_row = None
-    longit_csv = os.path.join(data_dir, "strain_la_4ch_longit.csv")
-    if os.path.exists(longit_csv):
-        os.remove(longit_csv)
-    seg4_ed = os.path.join(data_dir, "seg4_la_4ch_ED.nii.gz")
-    if os.path.exists(seg4_ed) and \
-            os.path.exists(os.path.join(data_dir, "seg_sa_ED.nii.gz")) and \
-            la_pass_quality_control(seg4_ed):
-        motion_dir = os.path.join(data_dir, "cine_la_motion")
-        os.makedirs(motion_dir, exist_ok=True)
-        try:
-            kwargs = {} if cfg is None else {"cfg": cfg}
-            ctx = start_la_motion_dispatch(data_dir, motion_dir, mesh=mesh,
-                                           eval_dice=eval_dice,
-                                           device=device, **kwargs)
-            if ctx is not None:
-                # motion_dir is deleted below: skip its per-frame VTKs
-                finish_la_motion(ctx, os.path.join(data_dir,
-                                                   "strain_la_4ch"),
-                                 eval_dice=eval_dice,
-                                 write_artifacts=False)
-        finally:
-            shutil.rmtree(motion_dir, ignore_errors=True)
+    with _stage(stages, "strain_la"):
+        la_strain_row = None
+        longit_csv = os.path.join(data_dir, "strain_la_4ch_longit.csv")
         if os.path.exists(longit_csv):
-            df_l = pd.read_csv(longit_csv, index_col=0)
-            la_strain_row = [df_l.iloc[i, :].min() for i in range(7)]
-    stages["strain_la"] = time.time() - t0
+            os.remove(longit_csv)
+        seg4_ed = os.path.join(data_dir, "seg4_la_4ch_ED.nii.gz")
+        if os.path.exists(seg4_ed) and \
+                os.path.exists(os.path.join(data_dir,
+                                            "seg_sa_ED.nii.gz")) and \
+                la_pass_quality_control(seg4_ed):
+            motion_dir = os.path.join(data_dir, "cine_la_motion")
+            os.makedirs(motion_dir, exist_ok=True)
+            try:
+                kwargs = {} if cfg is None else {"cfg": cfg}
+                ctx = start_la_motion_dispatch(data_dir, motion_dir,
+                                               mesh=mesh,
+                                               eval_dice=eval_dice,
+                                               device=device, **kwargs)
+                if ctx is not None:
+                    # motion_dir is deleted below: skip its per-frame VTKs
+                    finish_la_motion(ctx, os.path.join(data_dir,
+                                                       "strain_la_4ch"),
+                                     eval_dice=eval_dice,
+                                     write_artifacts=False)
+            finally:
+                shutil.rmtree(motion_dir, ignore_errors=True)
+            if os.path.exists(longit_csv):
+                df_l = _read_csv(longit_csv, index_col=0)
+                la_strain_row = [df_l.iloc[i, :].min() for i in range(7)]
 
     # --- aortic deploy + areas (deploy_network_ao.py, eval_aortic_area) ---
-    t0 = time.time()
-    ao_row = None
-    ao_engine = engines.get("ao")
-    if ao_engine is not None and \
-            os.path.exists(os.path.join(data_dir, "ao.nii.gz")):
-        if not skip_existing_seg:
-            seg_ao = os.path.join(data_dir, "seg_ao.nii.gz")
-            if os.path.exists(seg_ao):
-                os.remove(seg_ao)
-        deploy_subject_ao(ao_engine, data_dir)
-        pp = float("nan") if pressure_value is None else pressure_value
-        val = aortic_area_measures(data_dir, pp)
-        if val is not None:
-            ao_row = aortic_row(val)
-    stages["aortic"] = time.time() - t0
+    with _stage(stages, "aortic"):
+        ao_row = None
+        ao_engine = engines.get("ao")
+        if ao_engine is not None and \
+                os.path.exists(os.path.join(data_dir, "ao.nii.gz")):
+            if not skip_existing_seg:
+                seg_ao = os.path.join(data_dir, "seg_ao.nii.gz")
+                if os.path.exists(seg_ao):
+                    os.remove(seg_ao)
+            deploy_subject_ao(ao_engine, data_dir)
+            pp = float("nan") if pressure_value is None else pressure_value
+            val = aortic_area_measures(data_dir, pp)
+            if val is not None:
+                ao_row = aortic_row(val)
 
     if result is not None:
         if atrial_row is not None:
@@ -408,6 +431,7 @@ def run_cohort_full(data_root: str, engines: Dict[str, object],
     return result
 
 
+@span("ukbb.io.csv")
 def write_cohort_full_csvs(result: CohortResult, output_dir: str) -> None:
     """Aggregate CSVs for the LA and aortic stages (reference schemas:
     ``eval_atrial_volume.py:165-168``, ``eval_strain_lax.py:66-75``,

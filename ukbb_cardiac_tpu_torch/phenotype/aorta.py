@@ -15,6 +15,7 @@ import pandas as pd
 
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.phenotype.qc import aorta_pass_quality_control
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 COLUMNS = ["AAo max area (mm2)", "AAo min area (mm2)",
            "AAo distensibility (10-3 mmHg-1)",
@@ -32,6 +33,7 @@ def load_central_pulse_pressure(pressure_csv: str) -> pd.Series:
     return central_pp
 
 
+@span("ukbb.phenotype.aortic_areas")
 def aortic_area_measures(data_dir: str, central_pp_value: float):
     """Per-subject AAo/DAo max/min area + distensibility
     (``eval_aortic_area.py:58-83``). Returns dict or None."""

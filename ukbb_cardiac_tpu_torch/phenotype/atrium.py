@@ -22,6 +22,7 @@ from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.io.vtkio import PolyData, save_polydata
 from ukbb_cardiac_tpu_torch.ops.cc import get_largest_cc
 from ukbb_cardiac_tpu_torch.phenotype.qc import atrium_pass_quality_control
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 def evaluate_atrial_area_length(label, nim, long_axis):
@@ -96,6 +97,7 @@ COLUMNS = ["LAV max (mL)", "LAV min (mL)", "LASV (mL)", "LAEF (%)",
            "RAV max (mL)", "RAV min (mL)", "RASV (mL)", "RAEF (%)"]
 
 
+@span("ukbb.phenotype.atrial_volumes")
 def atrial_volume_measures(data_dir: str):
     """Per-subject atrial measures (``eval_atrial_volume.py:36-163``).
 

@@ -15,6 +15,7 @@ import numpy as np
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.ops.cc import count_significant_cc, get_largest_cc
 from ukbb_cardiac_tpu_torch.phenotype.contours import lv_slice_masks
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 def _load_seg(seg):
@@ -23,6 +24,7 @@ def _load_seg(seg):
     return np.asanyarray(seg), "<array>"
 
 
+@span("ukbb.phenotype.qc")
 def sa_pass_quality_control(seg_sa) -> bool:
     """SA seg QC (``cardiac_utils.py:77-136``): every class ≥10 px; ≥6
     contiguous LV slices; LV epi + RV present on the mid-cavity slice."""
@@ -65,6 +67,7 @@ def sa_pass_quality_control(seg_sa) -> bool:
     return True
 
 
+@span("ukbb.phenotype.qc")
 def la_pass_quality_control(seg_la) -> bool:
     """LA seg4 QC (``cardiac_utils.py:139-169``): all 5 classes ≥10 px on
     slice 0; endo/myo/epi extractable after CC cleanup."""
@@ -88,6 +91,7 @@ def la_pass_quality_control(seg_la) -> bool:
     return True
 
 
+@span("ukbb.phenotype.qc")
 def atrium_pass_quality_control(label, label_dict) -> bool:
     """Atrium QC (``cardiac_utils.py:1616-1652``): per chamber —
     (1) nonzero area at every frame; (2) at most one connected component
@@ -116,6 +120,7 @@ def atrium_pass_quality_control(label, label_dict) -> bool:
     return True
 
 
+@span("ukbb.phenotype.aortic_qc")
 def aorta_pass_quality_control(image, seg) -> bool:
     """Aorta QC (``cardiac_utils.py:1739-1796``): per vessel —
     (1) area > 0 at all frames; (2) max intensity in the structure at any

@@ -43,6 +43,7 @@ from ukbb_cardiac_tpu_torch.reg.register import (RegConfig, compose_chain,
                                                  invert_field_batch,
                                                  make_register_batch,
                                                  total_field)
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
 def evaluate_strain_by_length(contour_name_stem: str, T: int, dt: float,
@@ -88,7 +89,8 @@ def evaluate_strain_by_length(contour_name_stem: str, T: int, dt: float,
         index = [str(x) for x in np.arange(1, 17)] + ["Global"]
         column = np.arange(0, T) * dt * 1e3  # time in ms
         df = pd.DataFrame(table_strain[c], index=index, columns=column)
-        df.to_csv(f"{output_name_stem}_{c}.csv")
+        with span("ukbb.io.csv"):
+            df.to_csv(f"{output_name_stem}_{c}.csv")
 
 
 _HW_BUCKET = 32
@@ -329,39 +331,47 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
     (possibly mesh-split) registration for this subject's LV crop, which
     is then not padded to the bucket; ``mesh``: split the pair population
     over the mesh.
+
+    Spans (``utils/timing.py``): ``ukbb.phenotype.strain.crop``,
+    ``ukbb.phenotype.strain.contours`` and ``ukbb.reg.dispatch`` (the
+    registration, field and sampling programs queued).
     """
     dev = resolve_device_for(device, mesh)
-    # LV-focused crop (cardiac_utils.py:845-853): relabel RV->BG, bbox+20;
-    # the crop shares the source grid, so it is an exact slice in memory
-    ed_nim = nifti.load(os.path.join(data_dir, "seg_sa_ED.nii.gz"))
-    seg_ed = np.asanyarray(ed_nim.dataobj)
-    if seg_ed.ndim == 4:
-        seg_ed = seg_ed[:, :, :, 0]
-    lv_ed = np.array(seg_ed)
-    lv_ed[lv_ed == 3] = 0                        # padding(..., 3, 0)
-    x1, x2, y1, y2, z1, z2 = foreground_bbox(lv_ed, 20)
+    with span("ukbb.phenotype.strain.crop"):
+        # LV-focused crop (cardiac_utils.py:845-853): relabel RV->BG,
+        # bbox+20; the crop shares the source grid, so it is an exact
+        # slice in memory
+        ed_nim = nifti.load(os.path.join(data_dir, "seg_sa_ED.nii.gz"))
+        seg_ed = np.asanyarray(ed_nim.dataobj)
+        if seg_ed.ndim == 4:
+            seg_ed = seg_ed[:, :, :, 0]
+        lv_ed = np.array(seg_ed)
+        lv_ed[lv_ed == 3] = 0                        # padding(..., 3, 0)
+        x1, x2, y1, y2, z1, z2 = foreground_bbox(lv_ed, 20)
 
-    sa_nim = nifti.load(os.path.join(data_dir, "sa.nii.gz"))
-    sa_full = np.asanyarray(sa_nim.dataobj)
-    if sa_full.ndim == 3:
-        sa_full = sa_full[..., None]
-    affine_crop = np.copy(sa_nim.affine)
-    affine_crop[:3, 3] = (affine_crop @ np.array([x1, y1, z1, 1.0]))[:3]
-    sa_crop = sa_full[x1:x2, y1:y2, z1:z2].astype(np.float32)
-    seg_full = np.asanyarray(
-        nifti.load(os.path.join(data_dir, "seg_sa.nii.gz")).dataobj)
-    if seg_full.ndim == 3:
-        seg_full = seg_full[..., None]
-    seg_crop = seg_full[x1:x2, y1:y2, z1:z2]
+        sa_nim = nifti.load(os.path.join(data_dir, "sa.nii.gz"))
+        sa_full = np.asanyarray(sa_nim.dataobj)
+        if sa_full.ndim == 3:
+            sa_full = sa_full[..., None]
+        affine_crop = np.copy(sa_nim.affine)
+        affine_crop[:3, 3] = (affine_crop @ np.array([x1, y1, z1, 1.0]))[:3]
+        sa_crop = sa_full[x1:x2, y1:y2, z1:z2].astype(np.float32)
+        seg_full = np.asanyarray(
+            nifti.load(os.path.join(data_dir, "seg_sa.nii.gz")).dataobj)
+        if seg_full.ndim == 3:
+            seg_full = seg_full[..., None]
+        seg_crop = seg_full[x1:x2, y1:y2, z1:z2]
 
-    # ED contours on the three representative slices (basal/mid/apical);
-    # stale contour files of another subject would be trusted below
-    for stale in _glob.glob(os.path.join(output_dir,
-                                         "myo_contour_ED_z*.vtk")):
-        os.remove(stale)
-    extract_myocardial_contour(os.path.join(data_dir, "seg_sa_ED.nii.gz"),
-                               os.path.join(output_dir, "myo_contour_ED_z"),
-                               three_slices=True)
+    with span("ukbb.phenotype.strain.contours"):
+        # ED contours on the three representative slices (basal/mid/
+        # apical); stale contour files of another subject would be
+        # trusted below
+        for stale in _glob.glob(os.path.join(output_dir,
+                                             "myo_contour_ED_z*.vtk")):
+            os.remove(stale)
+        extract_myocardial_contour(
+            os.path.join(data_dir, "seg_sa_ED.nii.gz"),
+            os.path.join(output_dir, "myo_contour_ED_z"), three_slices=True)
 
     Z = sa_crop.shape[2]
     T = sa_crop.shape[3]
@@ -373,44 +383,52 @@ def start_sa_motion_dispatch(data_dir: str, output_dir: str,
         os.path.join(output_dir, f"myo_contour_ED_z{z:02d}.vtk"))]
     if not selected:
         return None
-    frames_zs = np.stack([np.transpose(sa_crop[:, :, z, :], (2, 0, 1))
-                          for z in selected])  # (Zsel, T, X, Y)
-    # zero-pad to the bucket: the reference solves the padded problem (a
-    # prebuilt registration has the shape its caller chose)
-    Xp, Yp = (X, Y) if register_batch is not None else bucket_hw(X, Y)
-    frames_zs = np.pad(frames_zs, ((0, 0), (0, 0), (0, Xp - X), (0, Yp - Y)))
+    with span("ukbb.phenotype.strain.crop"):
+        frames_zs = np.stack([np.transpose(sa_crop[:, :, z, :], (2, 0, 1))
+                              for z in selected])  # (Zsel, T, X, Y)
+        # zero-pad to the bucket: the reference solves the padded problem
+        # (a prebuilt registration has the shape its caller chose)
+        Xp, Yp = (X, Y) if register_batch is not None else bucket_hw(X, Y)
+        frames_zs = np.pad(frames_zs, ((0, 0), (0, 0), (0, Xp - X),
+                                       (0, Yp - Y)))
 
-    # the contour points (and labels) go up before the registration is
-    # queued: a host-to-device copy waits for the stream, and this function
-    # returns with the registration still running on the card
-    polys_ED, voxs = [], []
-    for z in selected:
-        poly = load_polydata(
-            os.path.join(output_dir, f"myo_contour_ED_z{z:02d}.vtk"))
-        world = poly.points
-        voxs.append((inv_affine @ np.concatenate(
-            [world, np.ones((len(world), 1))], axis=1).T).T[:, :3])
-        polys_ED.append(poly)
-    pts = np.zeros((len(selected), bucket_points(max(len(v) for v in voxs)),
-                    2), np.float32)
-    for i, v in enumerate(voxs):
-        pts[i, :len(v)] = v[:, :2]
-    pts_dev = torch.from_numpy(pts).to(dev)
+    with span("ukbb.phenotype.strain.contours"):
+        # the contour points (and labels) go up before the registration
+        # is queued: a host-to-device copy waits for the stream, and this
+        # function returns with the registration still running on the card
+        polys_ED, voxs = [], []
+        for z in selected:
+            poly = load_polydata(
+                os.path.join(output_dir, f"myo_contour_ED_z{z:02d}.vtk"))
+            world = poly.points
+            voxs.append((inv_affine @ np.concatenate(
+                [world, np.ones((len(world), 1))], axis=1).T).T[:, :3])
+            polys_ED.append(poly)
+        pts = np.zeros((len(selected),
+                        bucket_points(max(len(v) for v in voxs)), 2),
+                       np.float32)
+        for i, v in enumerate(voxs):
+            pts[i, :len(v)] = v[:, :2]
+        pts_dev = torch.from_numpy(pts).to(dev)
     seg_dev = None
     if eval_dice:
-        seg_sel = np.stack([np.transpose(seg_crop[:, :, z, :], (2, 0, 1))
-                            for z in selected]).astype(np.int32)
-        seg_sel = np.pad(seg_sel, ((0, 0), (0, 0), (0, Xp - X), (0, Yp - Y)))
-        seg_dev = torch.from_numpy(seg_sel).to(dev)
+        with span("ukbb.phenotype.strain.crop"):
+            seg_sel = np.stack([np.transpose(seg_crop[:, :, z, :],
+                                             (2, 0, 1))
+                                for z in selected]).astype(np.int32)
+            seg_sel = np.pad(seg_sel, ((0, 0), (0, 0), (0, Xp - X),
+                                       (0, Yp - Y)))
+            seg_dev = torch.from_numpy(seg_sel).to(dev)
 
     # the dense fields stay on the device; only points and Dice rows return
-    fields = track_multi_slice_fields(frames_zs, cfg, register_batch,
-                                      device=dev,
-                                      inverse_consistent=inverse_consistent,
-                                      mesh=mesh)
-    with torch.no_grad():
-        disp = sample_points(fields, pts_dev)
-        dice = None if seg_dev is None else warp_dice(seg_dev, fields, X, Y)
+    with span("ukbb.reg.dispatch"):
+        fields = track_multi_slice_fields(
+            frames_zs, cfg, register_batch, device=dev,
+            inverse_consistent=inverse_consistent, mesh=mesh)
+        with torch.no_grad():
+            disp = sample_points(fields, pts_dev)
+            dice = (None if seg_dev is None
+                    else warp_dice(seg_dev, fields, X, Y))
     return {"output_dir": output_dir, "selected": selected,
             "disp_dev": disp, "dice_dev": dice,
             "polys_ED": polys_ED, "voxs": voxs,
@@ -426,58 +444,63 @@ def finish_sa_motion(ctx: dict, output_name_stem: str,
     contour polydata and write the strain tables
     (``cardiac_utils.py:938-987``).  ``write_artifacts=False`` skips the
     per-frame contour VTKs (the cohort driver deletes the motion
-    directory right after reading the CSVs)."""
-    output_dir = ctx["output_dir"]
-    selected = ctx["selected"]
-    T, dt = ctx["T"], ctx["dt"]
-    affine_crop = ctx["affine_crop"]
-    eval_dice = ctx["eval_dice"]
-    disp_zs = ctx["disp_dev"].cpu().numpy().astype(np.float32)
-    dice_rows = []
-    if eval_dice and ctx["dice_dev"] is not None:
-        # rows come back (Zsel, T, 2), in (slice, frame) order
-        dice_rows = list(ctx["dice_dev"].cpu().numpy().astype(
-            np.float32).reshape(-1, 2))
-    polys_by_frame = [[] for _ in range(T)]
+    directory right after reading the CSVs).  Spans
+    (``utils/timing.py``): ``ukbb.phenotype.strain.fetch``, the wait for
+    the card and the readback, and ``ukbb.phenotype.strain.tables``."""
+    with span("ukbb.phenotype.strain.fetch"):
+        disp_zs = ctx["disp_dev"].cpu().numpy().astype(np.float32)
+        dice_rows = []
+        if ctx["eval_dice"] and ctx["dice_dev"] is not None:
+            # rows come back (Zsel, T, 2), in (slice, frame) order
+            dice_rows = list(ctx["dice_dev"].cpu().numpy().astype(
+                np.float32).reshape(-1, 2))
+    with span("ukbb.phenotype.strain.tables"):
+        output_dir = ctx["output_dir"]
+        selected = ctx["selected"]
+        T, dt = ctx["T"], ctx["dt"]
+        affine_crop = ctx["affine_crop"]
+        eval_dice = ctx["eval_dice"]
+        polys_by_frame = [[] for _ in range(T)]
 
-    for zi, z in enumerate(selected):
-        poly_ED = ctx["polys_ED"][zi]
-        vox = ctx["voxs"][zi]
+        for zi, z in enumerate(selected):
+            poly_ED = ctx["polys_ED"][zi]
+            vox = ctx["voxs"][zi]
 
+            for fr in range(T):
+                vox_fr = vox.copy()
+                vox_fr[:, :2] += disp_zs[zi, fr, :len(vox)]
+                world_fr = (affine_crop @ np.concatenate(
+                    [vox_fr, np.ones((len(vox_fr), 1))], axis=1).T).T[:, :3]
+                poly_fr = PolyData(points=world_fr, lines=list(poly_ED.lines),
+                                   point_scalars=dict(poly_ED.point_scalars),
+                                   point_vectors=dict(poly_ED.point_vectors),
+                                   cell_scalars=dict(poly_ED.cell_scalars))
+                if write_artifacts:
+                    save_polydata(
+                        poly_fr,
+                        os.path.join(output_dir,
+                                     f"myo_contour_z{z:02d}_fr{fr:02d}.vtk"))
+                polys_by_frame[fr].append(poly_fr)
+
+        # merge slices per frame (vtkAppendPolyData twin, :969-984)
+        merged = []
         for fr in range(T):
-            vox_fr = vox.copy()
-            vox_fr[:, :2] += disp_zs[zi, fr, :len(vox)]
-            world_fr = (affine_crop @ np.concatenate(
-                [vox_fr, np.ones((len(vox_fr), 1))], axis=1).T).T[:, :3]
-            poly_fr = PolyData(points=world_fr, lines=list(poly_ED.lines),
-                               point_scalars=dict(poly_ED.point_scalars),
-                               point_vectors=dict(poly_ED.point_vectors),
-                               cell_scalars=dict(poly_ED.cell_scalars))
+            m = append_polydata(polys_by_frame[fr])
             if write_artifacts:
-                save_polydata(
-                    poly_fr,
-                    os.path.join(output_dir,
-                                 f"myo_contour_z{z:02d}_fr{fr:02d}.vtk"))
-            polys_by_frame[fr].append(poly_fr)
+                save_polydata(m, os.path.join(output_dir,
+                                              f"myo_contour_fr{fr:02d}.vtk"))
+            merged.append(m)
 
-    # merge slices per frame (vtkAppendPolyData twin, :969-984)
-    merged = []
-    for fr in range(T):
-        m = append_polydata(polys_by_frame[fr])
-        if write_artifacts:
-            save_polydata(m, os.path.join(output_dir,
-                                          f"myo_contour_fr{fr:02d}.vtk"))
-        merged.append(m)
-
-    evaluate_strain_by_length(os.path.join(output_dir, "myo_contour_fr"),
-                              T, dt, output_name_stem, polys=merged,
-                              write_vtk=write_artifacts)
-    if eval_dice and dice_rows:
-        df = pd.DataFrame(dice_rows)
-        df.to_csv(os.path.join(output_dir, "dice_cine_warp_ffd.csv"),
-                  index=None, header=None)
-        return df
-    return None
+        evaluate_strain_by_length(os.path.join(output_dir, "myo_contour_fr"),
+                                  T, dt, output_name_stem, polys=merged,
+                                  write_vtk=write_artifacts)
+        if eval_dice and dice_rows:
+            df = pd.DataFrame(dice_rows)
+            with span("ukbb.io.csv"):
+                df.to_csv(os.path.join(output_dir, "dice_cine_warp_ffd.csv"),
+                          index=None, header=None)
+            return df
+        return None
 
 
 def cine_2d_sa_motion_and_strain_analysis(data_dir: str, output_dir: str,

@@ -17,6 +17,7 @@ import numpy as np
 import pandas as pd
 
 from ukbb_cardiac_tpu_torch.io import nifti
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 DENSITY = 1.05  # myocardium g/mL (eval_ventricular_volume.py:44)
 
@@ -34,6 +35,7 @@ def ventricular_volume_measures(image_name: str, seg_name: str) -> Optional[Dict
     return ventricular_volume_measures_from_seg(seg, nim.header)
 
 
+@span("ukbb.phenotype.volumes")
 def ventricular_volume_measures_from_seg(seg: np.ndarray,
                                          header) -> Dict[str, float]:
     """Array-based core of :func:`ventricular_volume_measures` — lets

@@ -26,8 +26,10 @@ from ukbb_cardiac_tpu_torch.io.vtkio import PolyData, save_polydata
 from ukbb_cardiac_tpu_torch.phenotype import aha
 from ukbb_cardiac_tpu_torch.phenotype.contours import (approximate_contour,
     contour_to_world, extract_contour, lv_slice_masks)
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
+@span("ukbb.phenotype.wall_thickness")
 def evaluate_wall_thickness(seg_name: str, output_name_stem: str,
                             part: Optional[str] = None,
                             save_epi_contour: bool = True) -> None:
@@ -123,7 +125,9 @@ def evaluate_wall_thickness(seg_name: str, output_name_stem: str,
     table_thickness_max[-1] = np.max(np_thickness)
 
     index = [str(x) for x in np.arange(1, 17)] + ["Global"]
-    pd.DataFrame(table_thickness, index=index, columns=["Thickness"]).to_csv(
-        f"{output_name_stem}.csv")
-    pd.DataFrame(table_thickness_max, index=index,
-                 columns=["Thickness_Max"]).to_csv(f"{output_name_stem}_max.csv")
+    with span("ukbb.io.csv"):
+        pd.DataFrame(table_thickness, index=index,
+                     columns=["Thickness"]).to_csv(f"{output_name_stem}.csv")
+        pd.DataFrame(table_thickness_max, index=index,
+                     columns=["Thickness_Max"]).to_csv(
+                         f"{output_name_stem}_max.csv")

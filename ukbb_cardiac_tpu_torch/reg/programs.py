@@ -65,6 +65,12 @@ a capture is underway, so a pool would stay reserved until the cache is
 emptied: a cache that drops programs (its bound, :meth:`ProgramCache.
 clear`) empties it then, between captures.  An owner that lets its
 cache go (an engine built for one run) clears it first.
+
+Spans (``utils/timing.py``), each around a call into a program and never
+inside the function it captures: ``ukbb.program.warmup`` (a key's first
+eager call), ``ukbb.program.capture``, ``ukbb.program.replay`` (copy-in,
+replay and copy-out) and ``ukbb.program.release`` (dropped programs'
+pools returned to the card).
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ukbb_cardiac_tpu_torch import kernels
+from ukbb_cardiac_tpu_torch.utils.timing import span
 
 MAX_PROGRAMS = 64
 # an engine's programs, the least recently used dropped beyond: room for
@@ -112,23 +119,26 @@ class Program:
                  ) -> Tuple[torch.Tensor, ...]:
         with self.lock, torch.cuda.device(inputs[0].device):
             if self.graph is None:
-                result = _written(self.fn(*inputs), out)
+                with span("ukbb.program.warmup"):
+                    result = _written(self.fn(*inputs), out)
                 self._capture(inputs)
                 return result
-            stream = torch.cuda.current_stream()
-            stream.wait_event(self.done)
-            for buf, x in zip(self.static_in, inputs):
-                buf.copy_(x)
-            self.graph.replay()
-            if out is None:
-                result = tuple(o.clone() for o in self.static_out)
-            else:
-                result = _written(self.static_out, out)
-            self.done.record(stream)
+            with span("ukbb.program.replay"):
+                stream = torch.cuda.current_stream()
+                stream.wait_event(self.done)
+                for buf, x in zip(self.static_in, inputs):
+                    buf.copy_(x)
+                self.graph.replay()
+                if out is None:
+                    result = tuple(o.clone() for o in self.static_out)
+                else:
+                    result = _written(self.static_out, out)
+                self.done.record(stream)
             self.replays += 1
         self.launches.replayed()
         return result
 
+    @span("ukbb.program.capture")
     def _capture(self, inputs) -> None:
         dev = inputs[0].device
         with torch.inference_mode(False):
@@ -237,7 +247,8 @@ class ProgramCache:
                     continue
                 dropped.append(self._programs.pop(key))
             self.dropped += len(dropped)
-        _release(dropped)
+        if dropped:
+            _release(dropped)
 
     def programs(self) -> List[Program]:
         """The cached programs, least recently used first."""
@@ -257,6 +268,7 @@ class ProgramCache:
         _release(dropped)
 
 
+@span("ukbb.program.release")
 def _release(dropped: List[Program]) -> None:
     """Let the programs of ``dropped`` go, then empty the allocator's cache
     so that their graphs' pools go back to the card and a later capture
