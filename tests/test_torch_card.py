@@ -1102,6 +1102,52 @@ def test_graphed_aortic_dispatch_is_bitwise_the_eager_route(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", ["sa", "ao"])
+def test_graphed_dispatch_reads_back_in_file_order(card, which):
+    """Cines whose voxel count leaves the packed tail part full (SA
+    (97, 101, 3, 5) with the trained FCN; aortic (119, 97, 1, 7) with the
+    UNet-LSTM), on the eager route, captured and replayed: ``result()``
+    is an F-contiguous (X, Y, Z, T) array, bitwise across the routes,
+    its packed bytes the labels in the NIfTI file's voxel order, and
+    equal to the CPU engine's labels on >= 99.9 % of voxels."""
+    from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
+
+    if which == "sa":
+        bundle = os.path.join(WEIGHTS, "FCN_sa.npz")
+        engines = [InferenceEngine(load_segmentation_model(bundle, dev))
+                   for dev in (card, "cpu")]
+        cine = _sax_cine(97, 101, 3, 5)
+
+        def dispatch(eng):
+            return eng.segment_sequence_dispatch(cine)
+    else:
+        bundle = os.path.join(WEIGHTS, "UNet-LSTM_ao.npz")
+        engines = [load_aortic_engine(bundle, dev) for dev in (card, "cpu")]
+        cine = _ao_cine(119, 97, 7)
+
+        def dispatch(eng):
+            return eng.segment_cine_dispatch(cine)
+    pending = []
+
+    def call():
+        pending.append(dispatch(engines[0]))
+        return pending[-1].result()
+
+    runs = _routes(call)
+    want = runs[0][0]
+    assert want.size % 4 != 0 and want.max() > 0
+    for (got, _), p in zip(runs, pending):
+        assert got.shape == cine.shape and got.dtype == np.uint8
+        assert got.flags.f_contiguous and np.array_equal(got, want)
+        # the voxels in the file's order, x fastest, packed on the CPU
+        file_order = torch.from_numpy(got.ravel(order="F"))
+        assert torch.equal(p._packed, pack_bits(file_order, p._bits))
+    cpu = dispatch(engines[1]).result()
+    assert cpu.flags.f_contiguous
+    assert (cpu == want).mean() >= 0.999
+
+
+@pytest.mark.cuda
 def test_graphed_sampling_is_bitwise_the_eager_route(card):
     """The strain's point sampling and warp-Dice (3 slices x 50 frames at
     the SA bucket 96^2, 256 points) replayed against the eager route, at

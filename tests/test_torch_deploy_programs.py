@@ -6,9 +6,11 @@ On the CPU every program runs as its plain function (the card tests
 replay the graphs, ``tests/test_torch_card.py``), so these hold the
 functions that the graphs capture: the slice engine's prep, chunk
 forward and pack against the JAX engine's ``_cine_fns`` / ``_fn``
-(labels and packed bytes identical), the aortic engine's full-sequence
-program and dispatch against ``_lstm_full`` / ``_subject_fn`` (``seg_ao``
-identical, logits and probabilities within 1e-5), and the strain's
+(labels identical; packed bytes in its bit layout, the voxels in the
+NIfTI file's order, and read back Fortran-contiguous), the aortic
+engine's full-sequence program and dispatch against ``_lstm_full`` /
+``_subject_fn`` (``seg_ao`` identical, logits and probabilities within
+1e-5), and the strain's
 point sampling and warp-Dice against ``_sample_program`` /
 ``_warp_dice_program``.  The cache tests run the engines with every
 program "replayed" by its function (a fake of ``Program.__call__``), to
@@ -122,15 +124,37 @@ def _raw_link(*engines):
         eng._bw._last_sample_t = time.monotonic()
 
 
+def _packed_in(labels, bits, order):
+    """``labels`` packed ``bits`` to a field, low field first (the JAX
+    engine's bit layout), in numpy, the voxels taken in ``order``: "C"
+    as the JAX engine packs them, "F" (x fastest, the NIfTI file's
+    order) as the port's engines do."""
+    per = 8 // bits
+    flat = labels.ravel(order=order).astype(np.uint8)
+    flat = np.concatenate([flat, np.zeros(-flat.size % per, np.uint8)])
+    shifts = np.arange(per, dtype=np.uint8) * bits
+    return np.bitwise_or.reduce(flat.reshape(-1, per) << shifts, axis=1)
+
+
+def _same_packing(jp, tp, labels):
+    """The two engines' packed bytes hold ``labels`` in one bit layout,
+    the JAX engine's in C order and the port's in the file's order."""
+    np.testing.assert_array_equal(np.asarray(jp._packed),
+                                  _packed_in(labels, jp._bits, "C"))
+    np.testing.assert_array_equal(tp._packed.numpy(),
+                                  _packed_in(labels, tp._bits, "F"))
+
+
 def _same_dispatch(jeng, teng, cine, rescale="percentile"):
-    """Labels and packed bytes of both engines' dispatch, identical."""
+    """Labels of both engines' dispatch identical, the port's
+    Fortran-contiguous; packed bytes in one layout."""
     jp = jeng.segment_sequence_dispatch(cine, rescale=rescale)
     tp = teng.segment_sequence_dispatch(cine, rescale)
     got, want = tp.result(), jp.result()
     assert got.shape == want.shape == cine.shape and got.dtype == np.uint8
+    assert got.flags.f_contiguous
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(tp._packed.numpy(),
-                                  np.asarray(jp._packed))
+    _same_packing(jp, tp, want)
     return got
 
 
@@ -141,8 +165,8 @@ def _same_dispatch(jeng, teng, cine, rescale="percentile"):
                                            ("none", np.float32)])
 def test_dispatch_programs_match_jax(fcn3, rescale, dtype):
     """prep (rescale, pad, chunks) -> chunk forward per chunk -> pack,
-    on a cine of two chunks, the last padded: labels and packed bytes
-    identical to the JAX engine's, the up-leg packed (int16; a tracker
+    on a cine of two chunks, the last padded: labels identical to the JAX
+    engine's, packed in its bit layout, the up-leg packed (int16; a tracker
     with no sample packs) and raw."""
     jeng, teng = _fcn_engines(3)
     cine = _cine(dtype=dtype)
@@ -157,11 +181,28 @@ def test_dispatch_programs_match_jax(fcn3, rescale, dtype):
     assert teng._stats.packed_dispatches == int(dtype == np.int16)
 
 
+@pytest.mark.parametrize("n_class", [3, 6])
+def test_dispatch_reads_back_in_file_order(n_class):
+    """A cine of 23,865 voxels, a multiple neither of the four 2-bit nor
+    of the two 4-bit fields a byte holds, so the packed tail is part
+    full: ``result()`` is an F-contiguous (X, Y, Z, T) array equal to the
+    JAX engine's labels, its buffer the NIfTI file's voxel stream."""
+    jeng, teng = _fcn_engines(n_class)
+    cine = _cine(shape=(37, 43, 3, 5), seed=n_class)
+    labels = _same_dispatch(jeng, teng, cine)
+    assert teng._pack_bits() == (2 if n_class <= 4 else 4)
+    assert labels.size % (8 // teng._pack_bits()) != 0
+    assert labels.T.flags.c_contiguous
+    assert labels.T.tobytes() == labels.tobytes(order="F")
+    assert len(np.unique(labels)) > 1
+
+
 @pytest.mark.parametrize("bundle", ["la_2ch", "la_4ch", "seg4"])
 def test_dispatch_programs_match_jax_by_class_count(bundle):
     """The trained LA bundles (2, 3 and 6 classes: 2-bit and 4-bit fields)
     on their phantoms, 5 frames in chunks of 4 (the last padded): labels
-    and packed bytes identical to the JAX engine's, near the truth."""
+    identical to the JAX engine's, packed in its bit layout, near the
+    truth."""
     path = os.path.join(WEIGHTS, BUNDLES[bundle])
     jeng = jengine.InferenceEngine(jax_load(path), chunk=4)
     teng = tengine.InferenceEngine(load_segmentation_model(path, "cpu"),
@@ -215,8 +256,8 @@ def test_run_slices_pads_the_last_chunk_as_jax(fcn3):
 def test_prep_and_pack_functions(fcn3):
     """The prep function's slices are the cine rescaled, transposed frame
     major, centred-padded and zero-padded to whole chunks; the pack
-    function crops and packs them back to the cine's (X, Y, Z, T)
-    order."""
+    function crops and packs them back in the cine's NIfTI voxel order
+    ((X, Y, Z, T) Fortran order, x fastest)."""
     _, teng = fcn3
     cine = _cine()
     X, Y, Z, T = cine.shape
@@ -237,8 +278,8 @@ def test_prep_and_pack_functions(fcn3):
     seg = labels[:T * Z, x_pre:x_pre + X, y_pre:y_pre + Y].numpy()
     seg = np.transpose(seg.reshape(T, Z, X, Y), (2, 3, 1, 0))
     np.testing.assert_array_equal(
-        tengine.unpack_bits(packed.numpy(), 2, seg.size).reshape(seg.shape),
-        seg)
+        tengine.unpack_bits(packed.numpy(), 2, seg.size).reshape(
+            seg.shape, order="F"), seg)
 
 
 # --- the aortic engine's programs --------------------------------------------
@@ -275,20 +316,39 @@ def test_full_sequence_program_matches_jax_lstm_full(ao_engines):
 def test_subject_programs_match_jax_subject_fn(ao_engines, z_score):
     """The dispatch's programs (normalise + pad, full sequence, argmax +
     crop + pack) against the JAX engine's ``_subject_fn`` at a 32^2 grid:
-    labels and packed bytes identical; ``pred_sequence`` of the padded
-    cine through the same full-sequence program."""
+    labels identical, packed in one bit layout (the port's in the file's
+    voxel order); ``pred_sequence`` of the padded cine through the same
+    full-sequence program."""
     jeng, teng = ao_engines
     rng = np.random.RandomState(5)
     cine = (rng.rand(30, 27, 1, 6) * 1500).astype(np.int16)
     jp = jeng.segment_cine_dispatch(cine, z_score=z_score, pad_to=32)
     tp = teng.segment_cine_dispatch(cine, z_score=z_score, pad_to=32)
-    got = tp.result()
-    np.testing.assert_array_equal(got, jp.result())
-    np.testing.assert_array_equal(tp._packed.numpy(), np.asarray(jp._packed))
+    got, want = tp.result(), jp.result()
+    assert got.flags.f_contiguous
+    np.testing.assert_array_equal(got, want)
+    _same_packing(jp, tp, want)
     assert len(np.unique(got)) > 1
     padded = rng.randn(32, 32, 1, 6).astype(np.float32)
     np.testing.assert_array_equal(teng.pred_sequence(padded),
                                   jeng.pred_sequence(padded))
+
+
+def test_aortic_dispatch_reads_back_in_file_order(ao_engines):
+    """An aortic cine of 5,481 voxels (a part-full packed tail):
+    ``result()`` is an F-contiguous (X, Y, Z, T) array equal to the JAX
+    engine's labels, packed in the file's voxel order."""
+    jeng, teng = ao_engines
+    cine = (np.random.RandomState(6).rand(29, 27, 1, 7) * 1500).astype(
+        np.int16)
+    jp = jeng.segment_cine_dispatch(cine, z_score=True, pad_to=32)
+    tp = teng.segment_cine_dispatch(cine, z_score=True, pad_to=32)
+    got, want = tp.result(), jp.result()
+    assert got.shape == cine.shape and got.dtype == np.uint8
+    assert got.flags.f_contiguous and got.size % 4 != 0
+    np.testing.assert_array_equal(got, want)
+    _same_packing(jp, tp, want)
+    assert len(np.unique(got)) > 1
 
 
 # --- the strain's sampling programs ------------------------------------------

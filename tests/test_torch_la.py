@@ -150,14 +150,16 @@ def test_la_deploys_match_jax(tmp_path, seq, seg4, key):
 
 def test_seg4_packs_four_bits_in_the_jax_layout(subject):
     """Six classes take 4-bit fields, low field first: the packed bytes of
-    a seg4 cine are the JAX engine's packing of the same labels."""
+    a seg4 cine are the JAX engine's packing of the same labels, taken in
+    the NIfTI file's voxel order."""
     engine = InferenceEngine(load_segmentation_model(
         os.path.join(WEIGHTS, BUNDLES["seg4"]), "cpu"))
     cine = _read(subject / "la_4ch.nii.gz")
     pending = engine.segment_sequence_dispatch(cine)
     labels = pending.result()
     assert pending._bits == 4 and int(labels.max()) == 5
-    flat = labels.reshape(-1).astype(np.uint8)
+    # the voxels in the NIfTI file's order, x fastest
+    flat = labels.ravel(order="F").astype(np.uint8)
     flat = np.concatenate([flat, np.zeros(-flat.size % 2, np.uint8)])
     want = (flat[0::2] | (flat[1::2] << 4)).astype(np.uint8)
     np.testing.assert_array_equal(pending._packed.numpy(), want)

@@ -3,10 +3,12 @@
 A one-subject SA cohort and a one-subject aortic ``run_cohort_full`` run
 under ``torch.profiler``: the ``ukbb.`` spans of the vocabulary appear
 and nest as documented, and each ``ukbb.stage.*`` span lasts what its
-``stage_seconds`` entry says (within 5 ms plus 5 %).  With no profiler
-running a span never calls ``record_function``; no span opens inside a
-function that a program captures; ``run_cohort --trace_dir`` writes the
-spans into its Chrome trace.  The program spans around a real capture
+``stage_seconds`` entry says (within 5 ms plus 5 %); the cohorts' NIfTI
+writes open no ``ukbb.io.nifti.reorder`` span, and a save of C-ordered
+voxels opens one.  With no profiler running a span never calls
+``record_function``; no span opens inside a function that a program
+captures; ``run_cohort --trace_dir`` writes the spans into its Chrome
+trace.  The program spans around a real capture
 and its replays are checked on the card (``tests/test_torch_card.py``).
 """
 
@@ -202,6 +204,45 @@ def test_no_span_opens_inside_a_captured_function(which, sa_run, ao_run):
         if name.startswith("ukbb."):
             assert not any(c[3] == th and c[1] <= a and b <= c[2]
                            for c in captured), name
+
+
+@pytest.mark.parametrize("which", ["sa", "ao"])
+def test_cohort_saves_reorder_no_voxels(which, sa_run, ao_run):
+    """Every NIfTI the cohort writes (the SA seg cine, its ED/ES frames
+    and the ED/ES image frames; the aortic seg) is Fortran-contiguous
+    already: no save opens ``ukbb.io.nifti.reorder``."""
+    names = [s[0] for s in (sa_run if which == "sa" else ao_run)[1]]
+    assert names.count("ukbb.io.nifti.save") >= (5 if which == "sa" else 1)
+    assert "ukbb.io.nifti.reorder" not in names
+
+
+def test_save_of_a_strided_view_reorders_once(tmp_path):
+    """A C-ordered cine and a frame of it, saved: one reorder span inside
+    each save; its Fortran-ordered copy, saved: none, and the same
+    bytes."""
+    cine = np.random.RandomState(0).randint(0, 4, (12, 10, 3, 5)).astype(
+        np.int16)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        nifti.save(nifti.Nifti1Image(cine, None), str(tmp_path / "c.nii.gz"))
+        nifti.save(nifti.Nifti1Image(cine[:, :, :, 2], None),
+                   str(tmp_path / "c2.nii.gz"))
+    spans = _spans(prof)
+    reorders = [s for s in spans if s[0] == "ukbb.io.nifti.reorder"]
+    assert len(reorders) == 2
+    assert all(_innermost_around(spans, s) == "ukbb.io.nifti.save"
+               for s in reorders)
+    fortran = np.asfortranarray(cine)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        nifti.save(nifti.Nifti1Image(fortran, None),
+                   str(tmp_path / "f.nii.gz"))
+        nifti.save(nifti.Nifti1Image(fortran[:, :, :, 2], None),
+                   str(tmp_path / "f2.nii.gz"))
+    names = [s[0] for s in _spans(prof)]
+    assert names.count("ukbb.io.nifti.save") == 2
+    assert "ukbb.io.nifti.reorder" not in names
+    for c, f in (("c", "f"), ("c2", "f2")):
+        assert ((tmp_path / f"{c}.nii.gz").read_bytes()
+                == (tmp_path / f"{f}.nii.gz").read_bytes())
 
 
 def test_span_without_a_profiler_never_calls_record_function(

@@ -16,8 +16,9 @@ Window modes, as in the JAX package:
 - ``window='full'`` (default, the cohort's path): the whole T-frame cine
   goes through the U-Net and the ConvLSTM scan at once, on the device from
   the cine's upload (raw, or packed while the link counts as degraded:
-  ``infer/transfer.py``) to the 2-bit-packed labels' readback
-  (:meth:`AorticEngine.segment_cine_dispatch`).
+  ``infer/transfer.py``) to the 2-bit-packed labels' readback in the
+  NIfTI file's voxel order, read back as Fortran-ordered (X, Y, Z, T)
+  labels (:meth:`AorticEngine.segment_cine_dispatch`).
 - ``window='compat'``: the reference's sliding-window blending, windows
   on the device and blending on the host.
 
@@ -107,12 +108,14 @@ def _subject_prep(z_score: bool, pads, raw: torch.Tensor):
 def _subject_pack(shape, pads, bits: int, prob: torch.Tensor):
     """The tail of ``_subject_fn`` and the dispatch's packing: (Z, T,
     n_class, X', Y') probabilities -> the (X, Y, Z, T) cine's argmax
-    labels, cropped and packed ``bits`` to a field."""
+    labels, cropped and packed ``bits`` to a field in the NIfTI file's
+    voxel order ((T, Z, Y, X) C order, x fastest), as the slice engine's
+    pack: :class:`PendingSegmentation` reads both the same way."""
     X, Y = shape
     x_pre, _, y_pre, _ = pads
     pred = torch.argmax(prob, dim=2).to(torch.uint8)
     pred = pred[:, :, x_pre:x_pre + X, y_pre:y_pre + Y]
-    return (pack_bits(pred.permute(2, 3, 0, 1).reshape(-1), bits),)
+    return (pack_bits(pred.permute(1, 0, 3, 2).reshape(-1), bits),)
 
 
 class AorticEngine:

@@ -7,8 +7,10 @@ slices go through the network in chunks on the device, and only
   raw cine upload -> prep (percentile rescale, centred pad to a multiple
   of 16, (T, Z) frame-major slices padded to whole chunks) -> per chunk,
   the chunk forward (FCN encoder, fused CUDA head, uint8 argmax) -> pack
-  (crop, bit pack, low field first) -> non-blocking copy into pinned
-  host memory.
+  (crop into the NIfTI file's voxel order, x fastest; bit pack, low field
+  first) -> non-blocking copy into pinned host memory.  The host reads
+  the labels back as a Fortran-ordered (X, Y, Z, T) view of the unpacked
+  buffer, which ``io/nifti.py::save`` writes without a reorder.
 
 On the card prep, the chunk forward and pack are the JAX engine's three
 programs (``_cine_fns``' ``prep`` and ``pack``, and ``_fn``, keyed by the
@@ -148,9 +150,12 @@ class PendingSegmentation:
 
     On the card the packed labels are being copied into pinned host
     memory behind an event; ``result()`` waits on that event and unpacks
-    to (X, Y, Z, T) uint8 labels.  ``device_ms`` is then the time on the
-    stream from the cine's upload to the end of the readback (CUDA
-    events), or None on the CPU.  With ``stats`` (a
+    to (X, Y, Z, T) uint8 labels, Fortran-contiguous: every producer
+    (:func:`_pack_cine`, ``deploy_ao._subject_pack``) packs them in the
+    NIfTI file's voxel order, x fastest, so the unpacked buffer is the
+    file's voxel stream and its reshape copies nothing.  ``device_ms``
+    is then the time on the stream from the cine's upload to the end of
+    the readback (CUDA events), or None on the CPU.  With ``stats`` (a
     :class:`~ukbb_cardiac_tpu_torch.infer.transfer.TransferStats`) the
     readback's bytes are recorded there.  ``result()`` runs inside the
     profiler span ``ukbb.engine.wait`` (``utils/timing.py``), which times
@@ -178,7 +183,7 @@ class PendingSegmentation:
         # one native pass through a per-byte table (the JAX engine's);
         # the numpy unpack builds a (bytes, 8 / bits) temporary
         return native.unpack_bits(self._packed.numpy(), self._bits,
-                                  n).reshape(self._shape)
+                                  n).reshape(self._shape, order="F")
 
 
 def pad_stack_to_multiple(stack: np.ndarray, n: int):
@@ -232,11 +237,12 @@ def _prep_cine(rescale: str, pads, n_pad: int, cine: torch.Tensor):
 def _pack_cine(shape, pads, bits: int, preds: torch.Tensor):
     """The JAX engine's ``pack``: padded (n, X', Y') labels, frame major
     -> the (X, Y, Z, T) cine's labels cropped and packed ``bits`` to a
-    field."""
+    field, in the NIfTI file's voxel order ((T, Z, Y, X) C order, x
+    fastest; the JAX engine packs (X, Y, Z, T) C order)."""
     X, Y, Z, T = shape
     x_pre, _, y_pre, _ = pads
     seg = preds[:T * Z, x_pre:x_pre + X, y_pre:y_pre + Y]
-    seg = seg.reshape(T, Z, X, Y).permute(2, 3, 1, 0).reshape(-1)
+    seg = seg.reshape(T, Z, X, Y).transpose(2, 3).reshape(-1)
     return (pack_bits(seg, bits),)
 
 

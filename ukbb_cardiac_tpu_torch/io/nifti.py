@@ -298,9 +298,11 @@ def save(image: Nifti1Image, filename: str) -> None:
     """Save to ``.nii`` / ``.nii.gz``."""
     hdr, data = _build_header_bytes(image)
     # Voxels go out in Fortran order.  Loaded images are F-contiguous
-    # (``load`` reshapes with order="F"), so ``data.T`` is a C-contiguous
-    # zero-copy view that the buffer protocol can stream directly;
-    # anything else pays one serialisation copy.  Writing header and
+    # (``load`` reshapes with order="F"), and so are the deploy engines'
+    # labels (``PendingSegmentation.result``), so ``data.T`` is a
+    # C-contiguous zero-copy view that the buffer protocol can stream
+    # directly; anything else pays one serialisation copy, under the
+    # span ``ukbb.io.nifti.reorder``.  Writing header and
     # voxels as separate f.write calls (instead of one concatenated
     # payload) avoids a second full-size copy — on the 1-core cohort
     # host these copies were a measured share of the per-subject wall.
@@ -309,7 +311,8 @@ def save(image: Nifti1Image, filename: str) -> None:
     elif data.flags.c_contiguous and data.ndim <= 1:
         voxels = data
     else:
-        voxels = data.tobytes(order="F")
+        with span("ukbb.io.nifti.reorder"):
+            voxels = data.tobytes(order="F")
     if str(filename).endswith(".gz"):
         # mtime=0 → deterministic output bytes for golden-file tests.
         # compresslevel=1, like nibabel's default: level 9 costs ~30 s on

@@ -20,6 +20,8 @@ with ``ukbb.``:
   times);
 - ``ukbb.io.nifti.load``, ``ukbb.io.nifti.save``, ``ukbb.io.vtk``,
   ``ukbb.io.csv``: file reads and writes, decode and encode included;
+  ``ukbb.io.nifti.reorder``, inside a save: the copy of voxels that are
+  not Fortran-contiguous into the file's order;
 - ``ukbb.engine.dispatch``, ``ukbb.engine.wait``: a cine's host prep,
   upload and queued programs, and the wait for its labels and their
   unpacking; ``ukbb.deploy.write``: the deploy's host work on the labels
