@@ -13,6 +13,11 @@ Each model has one *layout*: a list of ``(port key, tree, path)`` with
 pytree.  The loaders (``*_from_jax``), the writers (``*_to_jax``) and the
 optimizer-state mapping (:func:`adam_leaves`, :func:`load_adam_leaves`)
 all read it, so there is one mapping per model.
+
+TransUNet (``transunet`` bundles) has no JAX counterpart: its tensors
+keep PyTorch's layout under the published module's state-dict names,
+split at the dots into the ``params`` (parameters) and ``state``
+(buffers) trees (:func:`transunet_to_bundle`, :func:`transunet_from_bundle`).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 from ukbb_cardiac_tpu_torch.models.convlstm import BiConvLSTM, ConvLSTM
 from ukbb_cardiac_tpu_torch.models.fcn import (FCN, FCNConfig, ResNetConfig,
                                                ResNetFCN)
+from ukbb_cardiac_tpu_torch.models.transunet import (TransUNet,
+                                                     TransUNetConfig)
 from ukbb_cardiac_tpu_torch.models.unet import UNet, UNetConfig
 
 Layout = List[Tuple[str, str, Tuple[str, ...]]]
@@ -307,6 +314,37 @@ def convlstm_to_jax(net) -> dict:
     ``{"LSTM": ...}`` params tree."""
     layout = convlstm_layout(isinstance(net, BiConvLSTM))
     return jax_from_state_dict(layout, net.state_dict())[0]
+
+
+def transunet_to_bundle(net: TransUNet) -> Tuple[dict, dict, dict]:
+    """A :class:`TransUNet` -> (names, params, state) for
+    ``store.save_model(path, "transunet", net.cfg, names, params,
+    state)``: ``names`` lists the parameters' and the buffers' keys, the
+    trees hold them as numpy arrays in PyTorch's layout."""
+    trees = {"params": {}, "state": {}}
+    names = {"params": [], "state": []}
+    sd = net.state_dict()
+    params = {k for k, _ in net.named_parameters()}
+    for key, t in sd.items():
+        tree = "params" if key in params else "state"
+        names[tree].append(key)
+        _set(trees[tree], tuple(key.split(".")),
+             t.detach().cpu().numpy().copy())
+    return names, trees["params"], trees["state"]
+
+
+def transunet_from_bundle(params, state, names,
+                          cfg: TransUNetConfig) -> TransUNet:
+    """An eval-mode :class:`TransUNet` on the CPU holding a bundle's
+    tensors; every tensor the module holds must be in the bundle, and
+    nothing else."""
+    trees = {"params": params, "state": state}
+    sd = {key: torch.from_numpy(np.asarray(
+              _get(trees[tree], tuple(key.split(".")))))
+          for tree in ("params", "state") for key in names[tree]}
+    model = TransUNet(cfg)
+    model.load_state_dict(sd)
+    return model.eval()
 
 
 def _adam_order(layout: Layout) -> Layout:

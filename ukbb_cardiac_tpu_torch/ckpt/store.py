@@ -7,7 +7,8 @@ under ``params/`` or ``state/``, in the JAX layouts (HWIO kernels).  A
 trainer's bundle also holds its optimizer state as ``opt/{i}`` leaves in
 optax's flattening order with their count ``n_opt_leaves``.  Nothing in
 it depends on a framework, so the port reads and writes it with numpy;
-the JAX package reads what the port writes.
+the JAX package reads what the port writes.  A ``transunet`` bundle (a
+kind of the port alone) keeps PyTorch's layout (``ckpt/convert.py``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,15 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from ukbb_cardiac_tpu_torch.models.fcn import FCNConfig, ResNetConfig
+from ukbb_cardiac_tpu_torch.models.transunet import TransUNetConfig
 from ukbb_cardiac_tpu_torch.models.unet import UNetConfig
 
 _META_KEY = "__meta__"
 FORMAT = "ukbb_cardiac_tpu.model_bundle.v1"
 
 _CFG_TYPES = {"fcn": FCNConfig, "resnet": ResNetConfig, "unet": UNetConfig,
-              "temporal_unet": UNetConfig, "unet_lstm": UNetConfig}
+              "temporal_unet": UNetConfig, "unet_lstm": UNetConfig,
+              "transunet": TransUNetConfig}
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -113,7 +116,8 @@ def load_model_with_extra(path: str) -> Tuple[str, Any, Any, Dict, Dict,
     package's layouts (HWIO kernels).  ``cfg`` is an :class:`FCNConfig`
     for kind ``fcn``, a :class:`ResNetConfig` for ``resnet``, a
     :class:`UNetConfig` for ``unet``,
-    ``temporal_unet`` and ``unet_lstm``, and the raw config dict for kinds
+    ``temporal_unet`` and ``unet_lstm``, a :class:`TransUNetConfig` for
+    ``transunet``, and the raw config dict for kinds
     not ported yet.  ``extra`` is the bundle's free-form metadata (e.g.
     ``bidirectional``).
     """

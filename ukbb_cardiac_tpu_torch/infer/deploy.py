@@ -6,7 +6,8 @@ lines are the JAX package's.
 Behavioural parity points (reference file:line):
 - idempotent skip when ``seg_<seq>.nii.gz`` exists (:62-67)
 - intensity rescale to [0,1] at percentiles (1, 99) (:89)
-- centred pad to multiple of 16 (:94-100)
+- centred pad to multiple of 16 (:94-100); a TransUNet bundle pads to
+  its fixed grid instead (``infer/engine.py``)
 - ED = frame 0; ES = argmin(label-1 count) for sa / seg4 la_4ch,
   argmax for la views (:123-131)
 - output naming incl. the ``seg4_`` prefix (:134-151) and the
@@ -23,7 +24,9 @@ import numpy as np
 import torch
 
 from ukbb_cardiac_tpu_torch import resolve_device
-from ukbb_cardiac_tpu_torch.ckpt.convert import fcn_from_jax, resnet_from_jax
+from ukbb_cardiac_tpu_torch.ckpt.convert import (fcn_from_jax,
+                                                 resnet_from_jax,
+                                                 transunet_from_bundle)
 from ukbb_cardiac_tpu_torch.ckpt.store import load_model
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  SegmentationModel)
@@ -32,10 +35,12 @@ from ukbb_cardiac_tpu_torch.ops.intensity import rescale_intensity
 from ukbb_cardiac_tpu_torch.utils.timing import span
 
 
+@span("ukbb.ckpt.load")
 def load_segmentation_model(model_path: str, device=None,
                             compute_dtype=None) -> SegmentationModel:
-    """Load an FCN or ResNet-FCN bundle (.npz) onto ``device`` (default
-    ``cuda``)."""
+    """Load an FCN, ResNet-FCN or TransUNet bundle (.npz) onto ``device``
+    (default ``cuda``), the head or the weight standardisation folded
+    there."""
     device = resolve_device(device)
     kind, cfg, names, params, state = load_model(model_path)
     dtype = compute_dtype or torch.float32
@@ -45,8 +50,11 @@ def load_segmentation_model(model_path: str, device=None,
     if kind == "resnet":
         return SegmentationModel.from_resnet(
             resnet_from_jax(params, state, names, cfg), device, dtype)
+    if kind == "transunet":
+        return SegmentationModel.from_transunet(
+            transunet_from_bundle(params, state, names, cfg), device, dtype)
     raise ValueError(f"model kind {kind!r} is not an SA/LA segmenter; the "
-                     "deploy takes 'fcn' and 'resnet' bundles")
+                     "deploy takes 'fcn', 'resnet' and 'transunet' bundles")
 
 
 def seg_prefix(seq_name: str, seg4: bool) -> str:

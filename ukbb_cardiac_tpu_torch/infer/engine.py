@@ -32,6 +32,13 @@ folded weights and head kernel serve it.
 The same engine runs a 2D U-Net (``SegmentationModel.from_unet``, the
 aortic deploy's ``'unet'`` kind) over normalised slices, with the softmax
 probabilities on request (``want_prob``).
+
+TransUNet (``SegmentationModel.from_transunet``) fixes its input grid:
+its position embeddings are learned for ``img_size`` squared.  A model
+with a ``grid`` makes the engine pad every cine, centred, to that grid
+instead of to a multiple of ``pad_factor``, and refuse a larger matrix
+with ``ValueError``; so every cine shape shares one chunk-forward
+program.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ from ukbb_cardiac_tpu_torch.models.fcn import FCN, nchw
 from ukbb_cardiac_tpu_torch.models.fused_head import (HeadWeights,
                                                       apply_fcn_fused,
                                                       fold_head)
+from ukbb_cardiac_tpu_torch.models.transunet import TransUNet, fold_weight_std
 from ukbb_cardiac_tpu_torch.models.unet import UNet
-from ukbb_cardiac_tpu_torch.ops.crop import pad_to_multiple
+from ukbb_cardiac_tpu_torch.ops.crop import pad_to_multiple, pad_to_size
 from ukbb_cardiac_tpu_torch.ops.intensity import (normalise_intensity_torch,
                                                   rescale_intensity_torch)
 from ukbb_cardiac_tpu_torch.parallel.mesh import (canonical_device,
@@ -95,18 +103,20 @@ def pack_bits(flat: torch.Tensor, bits: int) -> torch.Tensor:
 @dataclass
 class SegmentationModel:
     """A deployable slice-segmentation model on one device: the FCN (or
-    ResNet-FCN) and its folded head weights, or a 2D U-Net (``head``
-    None).
+    ResNet-FCN) and its folded head weights, a 2D U-Net (``head``
+    None), or a TransUNet with its weight standardisation folded
+    (``head`` None, ``grid`` its fixed input size).
     :meth:`forward` maps (N, X, Y, C) images to channels-first float32
     logits (N, n_class, X, Y), eagerly (the engines' programs capture it,
     over weights that do not change; the trainer's validation is a
     program of its own that folds and packs the head on the card at
     every call, ``train/sa.py::validation_predict``)."""
 
-    net: FCN | UNet
+    net: FCN | UNet | TransUNet
     head: HeadWeights | None
     compute_dtype: torch.dtype
     n_class: int
+    grid: int | None = None
 
     @staticmethod
     def from_fcn(net: FCN, device,
@@ -123,22 +133,37 @@ class SegmentationModel:
         net = net.to(device).eval()
         return SegmentationModel(net, None, compute_dtype, net.cfg.n_class)
 
+    @staticmethod
+    def from_transunet(net: TransUNet, device,
+                       compute_dtype=torch.float32) -> "SegmentationModel":
+        """The TransUNet on ``device``, its weight standardisation folded
+        there (``models/transunet.py::fold_weight_std``)."""
+        net = fold_weight_std(net.to(device).eval())
+        return SegmentationModel(net, None, compute_dtype, net.cfg.n_class,
+                                 net.cfg.img_size)
+
     @property
     def device(self) -> torch.device:
         return next(self.net.parameters()).device
 
     def to(self, device) -> "SegmentationModel":
         """This model on ``device``: itself when it is there already, else
-        a copy of the network there with its head folded again."""
+        a copy of the network there with its head (or its weight
+        standardisation) folded again."""
         device = torch.device(device)
         if device == self.device:
             return self
         net = copy.deepcopy(self.net).to(device).eval()
+        if isinstance(net, TransUNet):
+            return SegmentationModel.from_transunet(net, device,
+                                                    self.compute_dtype)
         return SegmentationModel(net, fold_head(net) if self.head is not None
                                  else None, self.compute_dtype, self.n_class)
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.net, TransUNet):
+            return self.net(nchw(images, torch.float32), self.compute_dtype)
         if self.head is None:
             return self.net(nchw(images, self.compute_dtype))[0]
         return apply_fcn_fused(self.net, images, self.head,
@@ -251,7 +276,8 @@ class InferenceEngine:
 
     ``chunk``: slices per forward (64 keeps the encoder's activations of
     a 192x208 chunk near 1 GB in float32).  ``pad_factor``: spatial
-    padding multiple (16 = the FCN's 2^(n_level-1)).
+    padding multiple (16 = the FCN's 2^(n_level-1)); a model with a
+    fixed ``grid`` is padded to that grid instead (:meth:`pads`).
 
     The engine owns its programs (the JAX engine's ``self._compiled``):
     the chunk forward keyed by the padded chunk shape and ``want_prob``,
@@ -311,6 +337,19 @@ class InferenceEngine:
             rep.release_programs()
         self._programs.clear()
 
+    def pads(self, X: int, Y: int):
+        """Centred padding (x_pre, x_post, y_pre, y_post) of an X x Y
+        slice: to the model's fixed grid, or to multiples of
+        ``pad_factor``.  A slice larger than the grid raises
+        ``ValueError``."""
+        grid = self.model.grid
+        if grid is None:
+            return pad_to_multiple(X, Y, self.pad_factor)
+        if X > grid or Y > grid:
+            raise ValueError(f"a {X} x {Y} matrix does not fit the model's "
+                             f"{grid} x {grid} grid")
+        return pad_to_size(X, Y, grid)
+
     def _pack_bits(self) -> int:
         n = self.model.n_class
         return 2 if n <= 4 else (4 if n <= 16 else 8)
@@ -341,7 +380,7 @@ class InferenceEngine:
         if slices.ndim == 3:
             slices = slices[..., None]
         N, X, Y = slices.shape[:3]
-        x_pre, x_post, y_pre, y_post = pad_to_multiple(X, Y, self.pad_factor)
+        x_pre, x_post, y_pre, y_post = self.pads(X, Y)
         chunk = self._chunk(N)
         x = torch.from_numpy(np.ascontiguousarray(slices)).to(self.device)
         x = F.pad(x, (0, 0, y_pre, y_post, x_pre, x_post, 0, -N % chunk))
@@ -410,7 +449,7 @@ class InferenceEngine:
             image = image.astype(np.float32)
         X, Y, Z, T = image.shape
         N = T * Z
-        pads = pad_to_multiple(X, Y, self.pad_factor)
+        pads = self.pads(X, Y)
         chunk = self._chunk(N)
         bits = self._pack_bits()
         on_card = self.device.type == "cuda"

@@ -1,5 +1,6 @@
 """Model zoo: the FCN and ResNet-FCN (with the fused head, a CUDA kernel),
-the U-Net and temporal U-Net, and the (bidirectional) ConvLSTM heads, as
+the U-Net and temporal U-Net, the (bidirectional) ConvLSTM heads, and
+TransUNet R50-ViT-B/16 (an SA segmenter of the port alone), as
 ``nn.Module``s with the JAX package's ``apply_*`` functions beside them.
 
 Not re-exported, on purpose: the JAX package's PRNG-key initialisers
@@ -28,5 +29,9 @@ from ukbb_cardiac_tpu_torch.models.convlstm import (
     ConvLSTM,
     apply_biconv_lstm,
     apply_conv_lstm,
+)
+from ukbb_cardiac_tpu_torch.models.transunet import (
+    TransUNet,
+    TransUNetConfig,
 )
 from ukbb_cardiac_tpu_torch.models import losses, wrappers

@@ -33,7 +33,10 @@ with ``ukbb.``:
 - ``ukbb.reg.dispatch``: the strain stage's registration, field and
   sampling programs queued;
 - ``ukbb.phenotype.<name>``: each phenotype stage's host work;
-- ``ukbb.kernels.build``: compiling the CUDA kernels.
+- ``ukbb.kernels.build``: compiling the CUDA kernels;
+- ``ukbb.ckpt.load``: a segmentation bundle read and put on its device,
+  its head or weight standardisation folded
+  (``infer/deploy.py::load_segmentation_model``).
 
 A span goes around a call into a captured program, never inside a
 function that a program captures: such a function runs at its warm-up
