@@ -379,6 +379,68 @@ def test_aorta_qc_passes_the_phantom():
         jqc.aorta_pass_quality_control(image, seg) is True
 
 
+def _qc_case(case):
+    """(image, seg, what stdout holds) for a case of the aorta QC; None:
+    the gate passes and prints nothing."""
+    if case.startswith("gate"):
+        image, seg, message = _failing_segs()[int(case[4:])]
+        return image, seg, message
+    image, seg = _vessels([150.0, 160.0, 170.0, 160.0, 150.0, 145.0])
+    T = seg.shape[3]
+    if case == "ratio_wraps_to_t0":                     # 140 px after 300
+        image, seg = _vessels([140.0, 190.0, 240.0, 300.0])
+        return image, seg, "abrupt change of area at time frame 0."
+    if case == "split_at_last_frame":
+        seg[2:7, 2:7, 0, T - 1] = 1
+        return image, seg, f"components with more than 10 pixels at " \
+                           f"time frame {T - 1}."
+    if case == "noisy_in_dao_only":
+        image[46, 32, 0, 4] = 3000.0                    # DAo's centre
+        return image, seg, "very noisy at time frame 4."
+    if case == "int16_image_noisy":
+        image = np.round(image).astype(np.int16)
+        image[20, 32, 0, 2] = 2800                      # >= 3x 900
+        return image, seg, "very noisy at time frame 2."
+    if case == "int16_image_passes":
+        image, seg = ao_phantom(96, 80, 10, rng=np.random.RandomState(5))
+        return np.round(image).astype(np.int16), seg, None
+    if case == "fortran_uint8_split":                   # as NIfTI loads it
+        seg[40:45, 2:7, 0, 3] = 2
+        return (np.asfortranarray(image),
+                np.asfortranarray(seg.astype(np.uint8)),
+                "components with more than 10 pixels at time frame 3.")
+    if case == "float_seg_empty_dao":
+        seg = seg.astype(np.float64)
+        seg[..., T - 1][seg[..., T - 1] == 2] = 0
+        return image, seg, "The area of DAo is 0 at time frame 5."
+    if case == "two_slices_split":                      # the per-frame route
+        seg[2:7, 2:7, 0, 1] = 1
+        return (np.concatenate([image, image], axis=2),
+                np.concatenate([seg, seg], axis=2),
+                "components with more than 10 pixels at time frame 1.")
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [f"gate{i}" for i in range(5)] + [
+    "ratio_wraps_to_t0", "split_at_last_frame", "noisy_in_dao_only",
+    "int16_image_noisy", "int16_image_passes", "fortran_uint8_split",
+    "float_seg_empty_dao", "two_slices_split"])
+def test_aorta_qc_stdout_matches_jax(case):
+    """The gate's verdict and its whole stdout equal the JAX package's,
+    on each route: single-slice cines take the one pass over the frames,
+    a two-slice cine the per-frame loop."""
+    image, seg, message = _qc_case(case)
+    got, want = io.StringIO(), io.StringIO()
+    with redirect_stdout(got):
+        verdict = tqc.aorta_pass_quality_control(image, seg)
+    with redirect_stdout(want):
+        jverdict = jqc.aorta_pass_quality_control(image, seg)
+    assert verdict is jverdict is (message is None)
+    assert got.getvalue() == want.getvalue()
+    assert (got.getvalue() == "") if message is None else \
+        (message in got.getvalue())
+
+
 @pytest.mark.parametrize("pp", [40.0, float("nan"), 0.0])
 def test_aortic_area_measures_match_jax(tmp_path, pp):
     d = tmp_path / "1000006"

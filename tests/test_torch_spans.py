@@ -29,6 +29,7 @@ from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
 from ukbb_cardiac_tpu_torch.infer.engine import InferenceEngine
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.parallel import run_cohort_full, run_cohort_sa
+from ukbb_cardiac_tpu_torch.phenotype.qc import aorta_pass_quality_control
 from ukbb_cardiac_tpu_torch.reg import programs
 from ukbb_cardiac_tpu_torch.utils import timing
 from ukbb_cardiac_tpu_torch.utils.timing import StageTimer, span
@@ -69,6 +70,7 @@ AO_PARENTS = {
     "ukbb.deploy.write": "ukbb.stage.aortic",
     "ukbb.phenotype.aortic_areas": "ukbb.stage.aortic",
     "ukbb.phenotype.aortic_qc": "ukbb.phenotype.aortic_areas",
+    "ukbb.phenotype.aortic_qc.batch": "ukbb.phenotype.aortic_qc",
 }
 # where the file spans open, by the innermost span around them
 SA_IO = {
@@ -180,6 +182,35 @@ def test_sa_cohort_spans_nest_as_documented(sa_run):
 
 def test_aortic_cohort_spans_nest_as_documented(ao_run):
     _check_vocabulary(ao_run[1], AO_PARENTS, AO_IO)
+
+
+def test_every_aortic_qc_holds_one_batch_pass(ao_run):
+    """The single-slice aortic cine takes the gate's one pass over its
+    frames: one ``.aortic_qc.batch`` span inside each ``.aortic_qc``."""
+    spans = ao_run[1]
+    gates = [s for s in spans if s[0] == "ukbb.phenotype.aortic_qc"]
+    batches = [s for s in spans if s[0] == "ukbb.phenotype.aortic_qc.batch"]
+    assert len(gates) == len(batches) == 1
+    for _, a, b, th in gates:
+        assert sum(x[3] == th and a <= x[1] and x[2] <= b
+                   for x in batches) == 1
+
+
+@pytest.mark.parametrize("Z", [1, 2])
+def test_aortic_qc_batch_span_marks_the_route(Z):
+    """A cine of one slice opens the batch span, one of two slices (the
+    per-frame route) does not; both gates pass."""
+    X, Y, T = 40, 36, 5
+    xx, yy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    seg = np.zeros((X, Y, Z, T), np.int16)
+    seg[(xx - 12) ** 2 + (yy - 18) ** 2 <= 36] = 1
+    seg[(xx - 28) ** 2 + (yy - 18) ** 2 <= 25] = 2
+    image = np.where(seg > 0, 900.0, 40.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert aorta_pass_quality_control(image, seg) is True
+    names = [s[0] for s in _spans(prof)]
+    assert names.count("ukbb.phenotype.aortic_qc") == 1
+    assert names.count("ukbb.phenotype.aortic_qc.batch") == (Z == 1)
 
 
 @pytest.mark.parametrize("which", ["sa", "ao"])

@@ -4,8 +4,10 @@ A copy of ``ukbb_cardiac_tpu/native/__init__.py``: the DICOM reader's
 :func:`dicom_scan`, :func:`jpeg_sof3_decode` and :func:`jpegls_decode`;
 the connected-component passes on 2D masks that ``ops/cc.py`` routes
 through (:func:`largest_cc_2d`, :func:`count_significant_cc_2d`,
-:func:`remove_small_cc_2d`) and :func:`label_areas_per_frame`; the
-transfer packers (:func:`unpack_bits` for the engines' label readback,
+:func:`remove_small_cc_2d`), :func:`label_areas_per_frame`, and
+:func:`count_significant_cc_frames`, the aortic QC's one pass over a
+cine's frames; the transfer packers (:func:`unpack_bits` for the
+engines' label readback,
 :func:`pack_lo_hi_i16` / :func:`pack_lo_hi_i16_into` for the packed
 up-leg of ``infer/transfer.py``).  The library is built with ``g++ -O3 -shared
 -fPIC`` (not ``-march=native``: a library built on one host and loaded
@@ -100,6 +102,10 @@ def get_lib() -> ctypes.CDLL:
             lib.remove_small_cc_2d.argtypes = [i8p, i32, i32, i32, i64, i8p]
             lib.label_areas_per_frame.restype = None
             lib.label_areas_per_frame.argtypes = [i16p, i64, i32, i32, i64p]
+            lib.count_significant_cc_frames.restype = None
+            lib.count_significant_cc_frames.argtypes = [
+                i16p, i32, i32, i32, i32, i32, i64,
+                np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"), i64p]
             lib.unpack_bits.restype = None
             lib.unpack_bits.argtypes = [i8p, i64, i32, i8p, i64]
             lib.pack_lo_hi_i16.restype = None
@@ -235,6 +241,29 @@ def label_areas_per_frame(volume, n_labels: int) -> np.ndarray:
                               np.int32(T), np.int32(n_labels),
                               counts.reshape(-1))
     return counts
+
+
+def count_significant_cc_frames(frames, label: int, pixel_thres: int = 10,
+                                connectivity: int = 2):
+    """Per-frame :func:`count_significant_cc_2d` of ``frames == label``
+    over a (T, ny, nx) int16 stack, in one pass that compares the labels
+    in place → ((T,) int32 counts, (T,) int64 areas of the label).  A
+    C-contiguous stack is read without a copy."""
+    frames = np.asarray(frames)
+    if frames.ndim != 3 or frames.dtype != np.int16:
+        raise ValueError(f"count_significant_cc_frames takes a (T, ny, nx) "
+                         f"int16 stack, got {frames.dtype} {frames.shape}")
+    if not np.iinfo(np.int16).min <= label <= np.iinfo(np.int16).max:
+        raise ValueError(f"label {label} exceeds int16 range")
+    frames = np.ascontiguousarray(frames)
+    T, ny, nx = frames.shape
+    counts = np.empty(T, dtype=np.int32)
+    areas = np.empty(T, dtype=np.int64)
+    get_lib().count_significant_cc_frames(
+        frames.reshape(-1), np.int32(nx), np.int32(ny), np.int32(T),
+        np.int32(label), np.int32(connectivity), np.int64(pixel_thres),
+        counts, areas)
+    return counts, areas
 
 
 def _check_bits(bits: int) -> None:

@@ -1,6 +1,7 @@
 // Native host-side ops of ukbb_cardiac_tpu_torch: a copy of
 // ukbb_cardiac_tpu/native/hostops.cc (the port imports nothing of the JAX
-// package, so it keeps its own).
+// package, so it keeps its own), with one section more:
+// count_significant_cc_frames, the aortic QC's pass over a cine's frames.
 //
 // The port binds every entry point through ctypes (native/__init__.py),
 // which builds this file with g++ at first use: dicom_scan (the DICOM
@@ -149,6 +150,86 @@ void label_areas_per_frame(const int16_t* volume, int64_t frame_voxels,
       int16_t v = frame[i];
       if (v >= 0 && v < n_labels) c[v]++;
     }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Components of one label over a stack of frames (the aortic QC's pass).
+// ---------------------------------------------------------------------------
+
+// Per-frame count of the components of (frame == label) larger than
+// pixel_thres pixels, count_significant_cc_2d on every frame of a stack
+// without building a mask, and each frame's area of the label.  labels
+// holds n_frames frames of ny rows of nx, row-major, frame after frame (an
+// (X, Y, 1, T) cine in Fortran order is such a stack with nx = X; the count
+// is orientation-agnostic).  connectivity: 1 = faces, 2 = faces +
+// diagonals.  counts and areas have n_frames entries.  Rows without the
+// label are skipped after one compare pass the compiler vectorises; the
+// others are cut into runs, each joined with the touching runs of the row
+// above (uf_find over the runs, the size kept at each root).
+void count_significant_cc_frames(const int16_t* labels, int32_t nx,
+                                 int32_t ny, int32_t n_frames, int32_t label,
+                                 int32_t connectivity, int64_t pixel_thres,
+                                 int32_t* counts, int64_t* areas) {
+  const int16_t lab = (int16_t)label;
+  const int32_t reach = connectivity >= 2 ? 1 : 0;
+  // runs of the frame: [start, end) in their row; parent and size per run
+  std::vector<int32_t> start, end, parent;
+  std::vector<int64_t> size;
+  for (int32_t t = 0; t < n_frames; ++t) {
+    const int16_t* frame = labels + (int64_t)t * nx * ny;
+    start.clear();
+    end.clear();
+    parent.clear();
+    size.clear();
+    int64_t area = 0;
+    int32_t prev_lo = 0, prev_hi = 0;  // the row above's runs [lo, hi)
+    bool prev_row = false;             // whether that row is the one above
+    for (int32_t y = 0; y < ny; ++y) {
+      const int16_t* row = frame + (int64_t)y * nx;
+      int32_t any = 0;
+      for (int32_t x = 0; x < nx; ++x) any |= (row[x] == lab);
+      if (!any) {
+        prev_row = false;
+        continue;
+      }
+      const int32_t lo = (int32_t)start.size();
+      int32_t j = prev_row ? prev_lo : prev_hi;  // first candidate above
+      int32_t x = 0;
+      while (x < nx) {
+        while (x < nx && row[x] != lab) ++x;
+        if (x == nx) break;
+        const int32_t s = x;
+        while (x < nx && row[x] == lab) ++x;
+        area += x - s;
+        const int32_t r = (int32_t)start.size();
+        start.push_back(s);
+        end.push_back(x);
+        parent.push_back(r);
+        size.push_back(x - s);
+        if (!prev_row) continue;
+        // runs above that end before this one's reach cannot touch later
+        // runs of this row either
+        while (j < prev_hi && end[j] + reach <= s) ++j;
+        for (int32_t k = j; k < prev_hi && start[k] < x + reach; ++k) {
+          int32_t a = uf_find(parent, k);
+          int32_t b = uf_find(parent, r);
+          if (a != b) {
+            parent[b] = a;
+            size[a] += size[b];
+          }
+        }
+      }
+      prev_lo = lo;
+      prev_hi = (int32_t)start.size();
+      prev_row = true;
+    }
+    int32_t count = 0;
+    for (int32_t r = 0; r < (int32_t)parent.size(); ++r)
+      if (parent[r] == r && size[r] > pixel_thres) count++;
+    counts[t] = count;
+    areas[t] = area;
   }
 }
 

@@ -6,7 +6,10 @@ port's native union-find library (``native/hostops.cc``), whose build
 raises if it fails; 3D masks go to scipy.  The scipy versions
 (``*_scipy``) stay here as the plain versions the tests hold the native
 path to: the same components, the same first-in-raster-order choice
-among equal largest ones.  Reference semantics:
+among equal largest ones.  :func:`single_slice_frames` lays a
+single-slice cine out as the stack of frames that
+``native.count_significant_cc_frames`` counts in one pass (the aortic
+QC's route).  Reference semantics:
 ``common/image_utils.py:227-249`` (``get_largest_cc``,
 ``remove_small_cc``), the QC fragmentation criterion
 (``cardiac_utils.py:1629-1643``) and the aortic trainer's trusted-region
@@ -60,6 +63,13 @@ def count_significant_cc(binary, pixel_thres=10, connectivity=2):
         return native.count_significant_cc_2d(binary, pixel_thres,
                                               connectivity)
     return count_significant_cc_scipy(binary, pixel_thres, connectivity)
+
+
+def single_slice_frames(cine):
+    """The T frames of an (X, Y, 1, T) cine as a (T, Y, X) view: C-ordered,
+    so read in place, where the cine is Fortran-ordered as NIfTI loads
+    it."""
+    return np.asarray(cine)[:, :, 0, :].transpose(2, 1, 0)
 
 
 def count_significant_cc_scipy(binary, pixel_thres=10, connectivity=2):

@@ -12,8 +12,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from ukbb_cardiac_tpu_torch import native
 from ukbb_cardiac_tpu_torch.io import nifti
-from ukbb_cardiac_tpu_torch.ops.cc import count_significant_cc, get_largest_cc
+from ukbb_cardiac_tpu_torch.ops.cc import (count_significant_cc,
+                                           get_largest_cc,
+                                           single_slice_frames)
 from ukbb_cardiac_tpu_torch.phenotype.contours import lv_slice_masks
 from ukbb_cardiac_tpu_torch.utils.timing import span
 
@@ -126,9 +129,12 @@ def aorta_pass_quality_control(image, seg) -> bool:
     (1) area > 0 at all frames; (2) max intensity in the structure at any
     frame < 3x its ED mean intensity; (3) ≤1 connected component >10 px
     (8-connectivity); (4) no ≥2x / ≤0.5x frame-to-frame area change;
-    (5) max/min area ratio < 2."""
+    (5) max/min area ratio < 2.  A single-slice cine, as every aortic
+    cine is, takes :func:`_aorta_qc_one_slice`."""
     image = np.asanyarray(image)
     seg = np.asanyarray(seg)
+    if seg.shape[2] == 1:
+        return _aorta_qc_one_slice(image, seg)
     T = seg.shape[3]
     for l_name, l in [("AAo", 1), ("DAo", 2)]:
         for t in range(T):
@@ -155,6 +161,62 @@ def aorta_pass_quality_control(image, seg) -> bool:
             if ratio >= 2 or ratio <= 0.5:
                 print(f"There is abrupt change of area at time frame {t}.")
                 return False
+
+        if np.max(A) / np.min(A) >= 2:
+            print("There is large change of area between maximum and "
+                  "minimum areas.")
+            return False
+    return True
+
+
+def _first(fails) -> int:
+    return int(np.argmax(fails))
+
+
+@span("ukbb.phenotype.aortic_qc.batch")
+def _aorta_qc_one_slice(image, seg) -> bool:
+    """:func:`aorta_pass_quality_control` on an (X, Y, 1, T) cine: each
+    check over every frame at once, a vessel's areas and components in
+    one native pass (``native.count_significant_cc_frames``), the same
+    checks in the same order, each reporting its first failing frame."""
+    if seg.dtype != np.int16:
+        # once (the deploys save float64 labels), keeping seg == l exact
+        labels = np.zeros(seg.shape, np.int16, order="F")
+        for l in (1, 2):
+            np.copyto(labels, l, where=seg == l)
+        seg = labels
+    frames = single_slice_frames(seg)
+    pixels = single_slice_frames(image)
+    lowest = (-np.inf if np.issubdtype(pixels.dtype, np.floating)
+              else np.iinfo(pixels.dtype).min)
+    for l_name, l in [("AAo", 1), ("DAo", 2)]:
+        n_cc, A = native.count_significant_cc_frames(frames, l, 10, 2)
+        if not A.all():
+            print(f"The area of {l_name} is 0 at time frame "
+                  f"{_first(A == 0)}.")
+            return False
+
+        mean_intensity_ED = image[:, :, :, 0][seg[:, :, :, 0] == l].mean()
+        max_intensity = np.max(pixels, axis=(1, 2), where=frames == l,
+                               initial=lowest)
+        noisy = max_intensity / mean_intensity_ED >= 3
+        if noisy.any():
+            print(f"The image becomes very noisy at time frame "
+                  f"{_first(noisy)}.")
+            return False
+
+        split = n_cc >= 2
+        if split.any():
+            print(f"The segmentation has at least two connected components "
+                  f"with more than 10 pixels at time frame {_first(split)}.")
+            return False
+
+        ratio = A / np.roll(A, 1).astype(np.float64)
+        abrupt = (ratio >= 2) | (ratio <= 0.5)
+        if abrupt.any():
+            print(f"There is abrupt change of area at time frame "
+                  f"{_first(abrupt)}.")
+            return False
 
         if np.max(A) / np.min(A) >= 2:
             print("There is large change of area between maximum and "
