@@ -138,8 +138,6 @@
    and the phase-2 UNet-LSTM's production calls and reference steps on
    both routes as in phase 7 (the ConvLSTM's scan forward and backward
    inside the graph), and their validation loss programs (bitwise);
-   last, one packed SA and one packed aortic dispatch
-   against the raw path's labels, with the bytes each ships;
 10. ingestion: writes the cohort's 3 subjects as UK Biobank application
    zips of DICOMs with the port's writer (SA slices, LA 2/3/4-chamber,
    aortic; subject 0 with one SOF3, one JPEG-LS and one RLE series, the
@@ -170,8 +168,7 @@
    without matplotlib the same steps without the plot): seconds by step,
    M x N, the thresholds, the planted associations as the top hits.
    Phase 2 also holds both B-spline kernels at the both-directions batch
-   (B = 294 at every level of the 96^2 bucket), and phase 9 times the
-   native host pack beside its numpy twin (bytes identical);
+   (B = 294 at every level of the 96^2 bucket);
 12. meshes: ``make_mesh(1)`` holds the card and a mesh of one card more
    than the machine has raises; ``InferenceEngine.segment_subjects_sharded``
    over ``make_mesh(["cuda:0", "cuda:0"])`` on the cohort's 3 SA cines
@@ -3491,79 +3488,6 @@ def ao_programs(card, root, bundles):
                                  "differs from the eager route")
 
 
-def packed_phase(card, engine_mod, deploy):
-    """One packed SA dispatch and one packed aortic dispatch on the card
-    (a fresh engine's tracker has no sample yet: the link counts as
-    degraded) against the raw path's labels; the bytes each ships."""
-    from ukbb_cardiac_tpu_torch.infer import transfer
-    from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
-
-    print("[9/14] the packed up-leg: one SA and one aortic cine, packed and "
-          "raw", flush=True)
-    sa, _ = sax_phantom(*MAIN_SHAPE, r_lv=0.1 * MAIN_SHAPE[0],
-                        wall=0.039 * MAIN_SHAPE[0],
-                        rng=np.random.RandomState(5))
-    ao, _ = ao_phantom(*AO_SHAPE[:2], AO_SHAPE[3], r_aa=18.0, r_da=12.0,
-                       rng=np.random.RandomState(6))
-    cases = (
-        ("SA", engine_mod.InferenceEngine(
-            deploy.load_segmentation_model(BUNDLE, "cuda")),
-         lambda e, c: e.segment_sequence_dispatch(c), sa),
-        ("aortic", load_aortic_engine(AO_BUNDLE, "cuda"),
-         lambda e, c: e.segment_cine_dispatch(c), ao))
-    for name, eng, dispatch, cine in cases:
-        cine = np.asfortranarray(cine)  # as a NIfTI cine arrives
-        out, ms, host = {}, {}, {}
-        for mode in ("packed", "raw"):
-            if mode == "raw":
-                eng._bw.poll()
-                sampled = eng._bw.mbps
-                eng._bw = transfer.BandwidthTracker()
-                eng._bw.update(10 ** 9, 0.1)
-            before = eng._stats.h2d_bytes
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pending = dispatch(eng, cine)
-            host[mode] = time.perf_counter() - t0
-            out[mode] = pending.result()
-            ms[mode] = pending.device_ms
-            out[mode + "_bytes"] = eng._stats.h2d_bytes - before
-        plan = transfer.plan_pack(cine, None)
-        # the host pack alone: the (X, Y, Z, T) C-order copy of the
-        # Fortran-ordered cine that upload_cine makes first, then the
-        # native plane split against its numpy twin on that copy, in turns
-        t0 = time.perf_counter()
-        c_order = np.ascontiguousarray(cine)
-        t_copy = time.perf_counter() - t0
-        host_pack, packed = {}, {}
-        for tag, plain in (("native", False), ("numpy", True),
-                           ("native", False), ("numpy", True)):
-            t0 = time.perf_counter()
-            packed[tag] = transfer.pack_buffer(c_order, plan, plain=plain)
-            host_pack.setdefault(tag, []).append(time.perf_counter() - t0)
-        same = np.array_equal(packed["native"], packed["numpy"])
-        print(f"  {name}: host C-order copy {t_copy:.4f} s, then the pack in "
-              f"turns native / numpy / native / numpy "
-              f"{host_pack['native'][0]:.4f} / {host_pack['numpy'][0]:.4f} / "
-              f"{host_pack['native'][1]:.4f} / {host_pack['numpy'][1]:.4f} s "
-              f"(GPU machine's host), bytes identical {same}")
-        if not same:
-            raise AssertionError(f"{name}: native and numpy packs differ")
-        print(f"  {name} {cine.shape} {cine.dtype}: packed ({plan.mode}, "
-              f"{8 + plan.hi_bits}-bit) {out['packed_bytes']} bytes, raw "
-              f"{out['raw_bytes']} bytes; dispatch host time packed "
-              f"{host['packed']:.4f} s, raw {host['raw']:.4f} s; device span "
-              f"packed {ms['packed']:.3f} ms, raw {ms['raw']:.3f} ms; the "
-              f"packed upload's bandwidth sample "
-              f"{'none' if sampled is None else f'{sampled:.1f} MB/s'} "
-              f"[{card}]")
-        if (eng._stats.packed_dispatches != 1
-                or not np.array_equal(out["packed"], out["raw"])
-                or out["packed_bytes"] >= out["raw_bytes"]):
-            raise AssertionError(f"{name}: packed labels differ from raw or "
-                                 f"nothing was packed")
-
-
 def _write_dicom(job):
     """One DICOM file (a process-pool task: the Python encoders)."""
     from ukbb_cardiac_tpu_torch.data.dicom import dcmwrite_minimal
@@ -4788,7 +4712,6 @@ def main() -> int:
         # runs cuDNN and PyTorch only
         root, ao_truth, prop_launches = propagation_phase(card, work, bf)
         ao_train_phase(card, root, ao_truth, work)
-        packed_phase(card, engine_mod, deploy)
         # raw DICOM zips -> NIfTI -> the full cohort
         ingest_launches = ingestion_phase(card, work)
         # this slice's path: the demo, the trace, both-directions strain,

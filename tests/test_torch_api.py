@@ -1,7 +1,7 @@
 """The rest of the JAX package's public API in the port: the small
 functions (``deploy_subject_sequence``, ``pad_to_factor``,
 ``get_trusted_mask``, ``pad_image_to_multiple``, ``native.available``,
-``TransferStats.snapshot``) against the JAX ones, every name the JAX
+the engines' readback) against the JAX ones, every name the JAX
 subpackages' ``__init__`` export (or its torch counterpart) re-exported
 by the port's, and the port's console scripts.
 
@@ -130,19 +130,11 @@ def _tiny_ao_engines():
     return jeng, tdeploy_ao.AorticEngine("unet_lstm", net, "cpu")
 
 
-# the counters that the two packages count alike (the bandwidth EMA
-# needs a sample, which the port takes only on the card)
-COUNTS = ("h2d_bytes", "h2d_raw_bytes", "h2d_dispatches",
-          "packed_dispatches", "delta_dispatches", "d2h_bytes",
-          "d2h_fetches")
-
-
-def test_transfer_stats_snapshot_matches_jax():
-    """One cine through each engine of each package: the snapshot has the
-    JAX keys and the same counts, the readback included.  The JAX
-    snapshot's ``d2h_seconds`` (the wall blocked in the readback) is the
-    port's ``ukbb.engine.wait`` span: one per readback, inside the
-    dispatch-to-labels call, under the profiler."""
+def test_engine_readback_matches_jax_in_one_wait_span():
+    """One cine through each engine of each package: the labels are the
+    JAX engine's, and the readback is one ``ukbb.engine.wait`` span (the
+    JAX package's ``d2h_seconds``, the wall blocked in the readback),
+    inside the dispatch-to-labels call, under the profiler."""
     rng = np.random.RandomState(3)
     sa = (rng.rand(40, 52, 3, 10) * 900).astype(np.int16)
     ao = (rng.rand(24, 24, 1, 10) * 900).astype(np.int16)
@@ -157,16 +149,9 @@ def test_transfer_stats_snapshot_matches_jax():
                 activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             labels = run(teng)
         np.testing.assert_array_equal(labels, run(jeng))
-        got = teng._stats.snapshot(teng._bw)
-        want = jeng._stats.snapshot(None)
-        assert set(got) == set(want) - {"d2h_seconds"}
-        assert {k: got[k] for k in COUNTS} == {k: want[k] for k in COUNTS}
-        assert got["d2h_fetches"] == 1 and got["d2h_bytes"] > 0
+        assert labels.flags.f_contiguous and len(np.unique(labels)) > 1
         waits = [e for e in prof.events() if e.name == "ukbb.engine.wait"]
         assert len(waits) == 1 and waits[0].time_range.elapsed_us() >= 0
-    # with a bandwidth sample the EMA joins the snapshot, as in JAX
-    tsa._bw.update(4_000_000, 0.01)
-    assert tsa._stats.snapshot(tsa._bw)["h2d_mbps_ema"] == 400.0
 
 
 # --- the re-exports ------------------------------------------------------------

@@ -392,44 +392,44 @@ def test_pool_upload_is_ordered_after_queued_gathers(card):
 
 
 @pytest.mark.cuda
-def test_packed_up_leg_round_trip_on_card(card):
-    """The packed up-leg on the card: unpack_torch rebuilds a cine exactly
-    (plane and delta), and the SA and aortic engines give the raw path's
-    labels byte for byte."""
-    from ukbb_cardiac_tpu_torch.infer import transfer
+def test_raw_upload_of_every_dtype_on_card(card):
+    """The raw up-leg on the card: ``upload_cine`` hands the engines the
+    cine's (T, Z, Y, X) transpose in the dtype they ship (uint16 and
+    float64 as float32), and the SA and aortic engines give one cine's
+    labels byte for byte in every host dtype and memory order, read back
+    Fortran-contiguous, with a device span."""
     from ukbb_cardiac_tpu_torch.infer.deploy_ao import load_aortic_engine
+    from ukbb_cardiac_tpu_torch.infer.engine import upload_cine
 
     rng = np.random.RandomState(4)
-    base = rng.randint(0, 4000, (64, 72, 3, 1))
-    walk = rng.randint(-30, 31, (64, 72, 3, 20))
-    walk[..., 0] = 0
-    quiet = np.clip(base + np.cumsum(walk, -1), 0, 4095).astype(np.int16)
-    noisy = (rng.rand(64, 72, 3, 20) * 1000).astype(np.int16)
-    for cine, mode in ((quiet, "delta"), (noisy, "plane")):
-        plan = transfer.plan_pack(cine, None)
-        assert plan.mode == mode
-        buf = torch.from_numpy(transfer.pack_buffer(cine, plan)).to(card)
-        np.testing.assert_array_equal(
-            transfer.unpack_torch(buf, plan).cpu().numpy(), cine)
-
-    fast = transfer.BandwidthTracker()
-    fast.update(10 ** 9, 0.1)
+    sa = (rng.rand(64, 72, 2, 10) * 120).astype(np.int16)
+    ao = np.clip(_ao_cine(120, 98, 12) // 8, 0, 120).astype(np.int16)
+    dtypes = (np.int16, np.uint16, np.float32, np.float64, np.uint8, np.int8)
+    for dt in dtypes:
+        host = sa.astype(dt)
+        got = upload_cine(np.asfortranarray(host), card)
+        assert got.device.type == "cuda" and got.is_contiguous()
+        assert got.dtype == torch.from_numpy(host.astype(
+            np.float32 if dt in (np.uint16, np.float64) else dt)).dtype
+        np.testing.assert_array_equal(got.cpu().numpy(), host.T)
     engines = [
         (InferenceEngine(SegmentationModel.from_fcn(_random_fcn(), card)),
-         lambda e, c: e.segment_sequence_dispatch(c).result(),
-         np.asfortranarray(noisy[:, :, :2, :10])),
+         lambda e, c: e.segment_sequence_dispatch(c), sa),
         (load_aortic_engine(os.path.join(WEIGHTS, "UNet-LSTM_ao.npz"), card),
-         lambda e, c: e.segment_cine_dispatch(c).result(),
-         np.asfortranarray(_ao_cine(120, 98, 12)))]
-    for eng, run, cine in engines:
-        packed = run(eng, cine)  # no bandwidth sample yet: packed
-        assert eng._stats.packed_dispatches == 1
-        eng._bw = fast
-        raw = run(eng, cine)
-        assert eng._stats.packed_dispatches == 1
-        assert eng._stats.h2d_dispatches == 2
-        np.testing.assert_array_equal(packed, raw)
-        assert len(np.unique(raw)) > 1
+         lambda e, c: e.segment_cine_dispatch(c), ao)]
+    for eng, dispatch, cine in engines:
+        want = None
+        for dt in dtypes:
+            for order in ("C", "F"):
+                pending = dispatch(eng, np.asarray(cine.astype(dt),
+                                                   order=order))
+                labels = pending.result()
+                assert labels.flags.f_contiguous and pending.device_ms > 0
+                if want is None:
+                    want = labels
+                    assert len(np.unique(want)) > 1
+                np.testing.assert_array_equal(labels, want, err_msg=str(dt))
+        eng.release_programs()
 
 
 def _write_ao_annotated(d, X=64, Y=64, T=8, seed=3, pulse_amp=0.45):

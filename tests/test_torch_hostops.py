@@ -1,13 +1,13 @@
 """The port's native host ops beyond ingestion: the connected-component
 passes that ``ops/cc.py`` routes 2D masks through, the per-frame label
-counts, and the transfer packers of the engines' readback and packed
-up-leg — against the JAX package's native library and against the plain
-scipy / numpy versions kept beside them.
+counts, and the unpack of the engines' label readback — against the JAX
+package's native library and against the plain scipy / numpy versions
+kept beside them.
 
-Integer outputs, so the bound is equality: masks, counts, unpacked labels
-and packed bytes identical.  Masks are drawn by hypothesis (a fixed,
-derandomized set), with ties between equal largest components, empty
-masks and both connectivities among them.  Also: the port's build reads
+Integer outputs, so the bound is equality: masks, counts and unpacked
+labels identical.  Masks are drawn by hypothesis (a fixed, derandomized
+set), with ties between equal largest components, empty masks and both
+connectivities among them.  Also: the port's build reads
 ``hostops.cc`` from its own package directory, which ``pyproject.toml``
 ships, and ``utils/cache`` moves the build directories.
 """
@@ -24,9 +24,8 @@ from hypothesis import strategies as st
 from hypothesis.extra.numpy import arrays
 
 from ukbb_cardiac_tpu import native as jnative
-from ukbb_cardiac_tpu.infer import transfer as jtransfer
 from ukbb_cardiac_tpu_torch import kernels, native
-from ukbb_cardiac_tpu_torch.infer import engine, transfer
+from ukbb_cardiac_tpu_torch.infer import engine
 from ukbb_cardiac_tpu_torch.ops import cc
 from ukbb_cardiac_tpu_torch.utils.cache import enable_compilation_cache
 
@@ -123,52 +122,6 @@ def test_unpack_bits_matches_numpy_and_jax(bits, n, seed):
     np.testing.assert_array_equal(got, jnative.unpack_bits(packed, bits, n))
     with pytest.raises(ValueError):
         native.unpack_bits(packed, 3, n)
-
-
-@HYP
-@given(st.sampled_from([1, 2, 4]), st.integers(1, 300), st.integers(0, 9))
-def test_pack_lo_hi_matches_numpy_and_jax(hi_bits, n, seed):
-    vals = np.random.RandomState(seed).randint(
-        0, 1 << (8 + hi_bits), n).astype(np.int16)
-    lo, hi = native.pack_lo_hi_i16(vals, hi_bits)
-    jlo, jhi = jnative.pack_lo_hi_i16(vals, hi_bits)
-    np.testing.assert_array_equal(lo, jlo)
-    np.testing.assert_array_equal(hi, jhi)
-    k = -(-n * hi_bits // 8)
-    native_buf, plain_buf = np.empty(n + k, np.uint8), np.empty(n + k,
-                                                                np.uint8)
-    transfer._pack_section_into(vals, hi_bits, native_buf)
-    transfer._pack_section_into(vals, hi_bits, plain_buf, plain=True)
-    np.testing.assert_array_equal(native_buf, plain_buf)
-    np.testing.assert_array_equal(native_buf, np.concatenate([lo, hi]))
-    with pytest.raises(ValueError, match="buffers"):
-        native.pack_lo_hi_i16_into(vals, hi_bits, lo[:-1], hi)
-
-
-@pytest.mark.parametrize("dtype,maxv,smooth", [
-    (np.int16, 4095, True), (np.int16, 1023, False), (np.uint16, 4000, True),
-    (np.int16, 200, False)], ids=["delta12", "plane10", "u16", "plane8"])
-def test_pack_buffer_native_equals_plain_and_jax(dtype, maxv, smooth):
-    """A cine-shaped array through the planner, then the native packer,
-    its numpy twin and the JAX package's packer: identical bytes, and the
-    device rebuild equals the input."""
-    rng = np.random.RandomState(maxv)
-    X, Y, Z, T = 64, 48, 2, 12       # delta needs 2^16 values or more
-    if smooth:     # slow change along time: the planner takes delta mode
-        base = rng.randint(0, maxv - 40, (X, Y, Z, 1))
-        img = base + np.cumsum(rng.randint(0, 3, (X, Y, Z, T)), axis=-1)
-    else:
-        img = rng.randint(0, maxv + 1, (X, Y, Z, T))
-    img = img.astype(dtype)
-    plan = transfer.plan_pack(img, None)
-    assert plan is not None and plan.mode == ("delta" if smooth else "plane")
-    buf = transfer.pack_buffer(img, plan)
-    np.testing.assert_array_equal(buf, transfer.pack_buffer(img, plan,
-                                                            plain=True))
-    np.testing.assert_array_equal(
-        buf, jtransfer.pack_buffer(img, jtransfer.PackPlan(**plan.__dict__)))
-    rebuilt = transfer.unpack_torch(torch.from_numpy(buf), plan).numpy()
-    np.testing.assert_array_equal(rebuilt, img.astype(rebuilt.dtype))
 
 
 def test_native_source_is_the_packages_own(monkeypatch, tmp_path):

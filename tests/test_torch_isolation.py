@@ -94,7 +94,6 @@ SLICE_MODULES = {
     "ukbb_cardiac_tpu_torch.cli.propagate_aortic_annotation",
     "ukbb_cardiac_tpu_torch.train.ao",
     "ukbb_cardiac_tpu_torch.cli.train_network_ao",
-    "ukbb_cardiac_tpu_torch.infer.transfer",
     # the ingestion slice's
     "ukbb_cardiac_tpu_torch.native",
     "ukbb_cardiac_tpu_torch.data.dicom",

@@ -70,9 +70,10 @@ def main(argv=None):
     parser.add_argument("--output_dir", metavar="dir_name", required=True,
                         help="Aggregate CSV directory")
     parser.add_argument("--workers", type=int, default=1,
-                        help="Subjects in flight (threads). 1 by default: "
-                             "on one H100 three workers ran slower than one "
-                             "(PERF.md section 5).")
+                        help="Subjects in flight (threads). 1 by default, "
+                             "the count every benchmark cell runs (PERF.md "
+                             "section 4); more workers have no cell yet "
+                             "(ROADMAP.md C2, F1).")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 activations for segmentation")
     parser.add_argument("--eval_dice", action="store_true")

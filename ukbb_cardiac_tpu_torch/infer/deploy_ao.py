@@ -15,10 +15,10 @@ Reference behaviour (file:line):
 Window modes, as in the JAX package:
 - ``window='full'`` (default, the cohort's path): the whole T-frame cine
   goes through the U-Net and the ConvLSTM scan at once, on the device from
-  the cine's upload (raw, or packed while the link counts as degraded:
-  ``infer/transfer.py``) to the 2-bit-packed labels' readback in the
-  NIfTI file's voxel order, read back as Fortran-ordered (X, Y, Z, T)
-  labels (:meth:`AorticEngine.segment_cine_dispatch`).
+  the cine's raw upload to the 2-bit-packed labels' readback in the NIfTI
+  file's voxel order, read back as Fortran-ordered (X, Y, Z, T) labels
+  (:meth:`AorticEngine.segment_cine_dispatch`, through the slice
+  engine's ``dispatch_cine``).
 - ``window='compat'``: the reference's sliding-window blending, windows
   on the device and blending on the host.
 
@@ -37,7 +37,6 @@ import copy
 import functools
 import os
 import time
-import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -48,10 +47,11 @@ from ukbb_cardiac_tpu_torch import resolve_device
 from ukbb_cardiac_tpu_torch.ckpt.convert import (convlstm_from_jax,
                                                  unet_from_jax)
 from ukbb_cardiac_tpu_torch.ckpt.store import load_model_with_extra
-from ukbb_cardiac_tpu_torch.infer import transfer
 from ukbb_cardiac_tpu_torch.infer.engine import (InferenceEngine,
                                                  PendingSegmentation,
-                                                 SegmentationModel, pack_bits,
+                                                 SegmentationModel,
+                                                 dispatch_cine, label_bits,
+                                                 pack_bits,
                                                  pad_stack_to_multiple)
 from ukbb_cardiac_tpu_torch.io import nifti
 from ukbb_cardiac_tpu_torch.models.wrappers import UNetLSTM
@@ -141,9 +141,6 @@ class AorticEngine:
         self.compute_dtype = compute_dtype
         self.n_class = (net.unet if kind == "unet_lstm" else net).cfg.n_class
         self._unet_engine = None
-        # the adaptive packed up-leg (infer/transfer.py)
-        self._bw = transfer.BandwidthTracker()
-        self._stats = transfer.TransferStats()
         # this engine's programs; nothing in them refers back to the
         # engine, so they go with it
         self._programs = programs.ProgramCache(
@@ -197,42 +194,26 @@ class AorticEngine:
         if self.kind == "unet":
             raise ValueError("the full-scan path is for the LSTM/temporal "
                              "models; use prob_sequence for the UNet model")
-        image = np.asarray(image)
-        X, Y, Z, T = image.shape
+        X, Y, Z, T = np.shape(image)
         if X > pad_to or Y > pad_to:
             raise ValueError(
                 f"aortic cine {X}x{Y} exceeds the {pad_to}x{pad_to} grid "
                 f"(deploy_network_ao.py:104-108 pads to a fixed size); "
                 f"pass a larger pad_to")
         pads = pad_to_size(X, Y, pad_to)
-        bits = 2 if self.n_class <= 4 else (4 if self.n_class <= 16 else 8)
-        on_card = self.device.type == "cuda"
-        events = None
-        if on_card:
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        # (T, Z, Y, X) in the file's own type: raw, or packed while the
-        # link counts as degraded and rebuilt exactly (infer/transfer.py);
-        # the device span starts at its upload, outside the programs
-        raw = transfer.upload_cine(image, self.device, self._bw,
-                                   self._stats,
-                                   start=events[0] if on_card else None)
-        (seq,) = self._programs.run(
-            ("subject-prep", z_score, pad_to),
-            functools.partial(_subject_prep, z_score, pads), raw)
-        (packed,) = self._programs.run(
-            ("subject-pack", X, Y),
-            functools.partial(_subject_pack, (X, Y), pads, bits),
-            self._full_prob(seq))
-        if on_card:
-            host = torch.empty(packed.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            events[1].record()
-        else:
-            host = packed
-        return PendingSegmentation(host, (X, Y, Z, T), bits, events,
-                                   stats=self._stats)
+        bits = label_bits(self.n_class)
+
+        def run(raw):
+            (seq,) = self._programs.run(
+                ("subject-prep", z_score, pad_to),
+                functools.partial(_subject_prep, z_score, pads), raw)
+            (packed,) = self._programs.run(
+                ("subject-pack", X, Y),
+                functools.partial(_subject_pack, (X, Y), pads, bits),
+                self._full_prob(seq))
+            return packed
+
+        return dispatch_cine(image, self.device, bits, run)
 
     def segment_cine(self, image: np.ndarray, z_score: bool = True,
                      pad_to: int = AO_SIZE) -> np.ndarray:

@@ -19,10 +19,9 @@ captured at a shape's first call and replayed after
 (``reg/programs.py``), in a cache the engine owns, over its own weights.
 :meth:`InferenceEngine.segment_sequence_dispatch` returns as soon as that
 work is queued; :meth:`PendingSegmentation.result` waits for it and
-unpacks.  The cine goes up raw, or packed into one uint8 buffer while
-the engine's bandwidth tracker counts the link as degraded (no sample
-yet, or slow), and is rebuilt exactly on the device
-(``infer/transfer.py``), so the labels are the same either way.
+unpacks.  The cine goes up raw (:func:`upload_cine`); the upload and the
+readback are :func:`dispatch_cine`, which the aortic engine's dispatch
+calls too.
 
 :meth:`InferenceEngine.segment_sequence_fused` is the same pipeline
 waited for, with the rescale chosen ('percentile', 'zscore' or 'none').
@@ -45,6 +44,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,7 +52,6 @@ import torch
 import torch.nn.functional as F
 
 from ukbb_cardiac_tpu_torch import native
-from ukbb_cardiac_tpu_torch.infer import transfer
 from ukbb_cardiac_tpu_torch.models.fcn import FCN, nchw
 from ukbb_cardiac_tpu_torch.models.fused_head import (HeadWeights,
                                                       apply_fcn_fused,
@@ -85,6 +84,12 @@ def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
     mask = (1 << bits) - 1
     unpacked = (packed[:, None] >> shifts) & mask
     return unpacked.reshape(-1)[:n].astype(np.uint8)
+
+
+def label_bits(n_class: int) -> int:
+    """The field width of a packed label of ``n_class`` classes: 2, 4 or 8
+    bits (the JAX engines' rule)."""
+    return 2 if n_class <= 4 else (4 if n_class <= 16 else 8)
 
 
 def pack_bits(flat: torch.Tensor, bits: int) -> torch.Tensor:
@@ -180,20 +185,17 @@ class PendingSegmentation:
     NIfTI file's voxel order, x fastest, so the unpacked buffer is the
     file's voxel stream and its reshape copies nothing.  ``device_ms``
     is then the time on the stream from the cine's upload to the end of
-    the readback (CUDA events), or None on the CPU.  With ``stats`` (a
-    :class:`~ukbb_cardiac_tpu_torch.infer.transfer.TransferStats`) the
-    readback's bytes are recorded there.  ``result()`` runs inside the
-    profiler span ``ukbb.engine.wait`` (``utils/timing.py``), which times
-    the wait on the profiler's clock.
+    the readback (CUDA events), or None on the CPU.  ``result()`` runs
+    inside the profiler span ``ukbb.engine.wait`` (``utils/timing.py``),
+    which times the wait on the profiler's clock.
     """
 
     def __init__(self, packed_host: torch.Tensor, out_shape, bits: int,
-                 events=None, stats=None):
+                 events=None):
         self._packed = packed_host
         self._shape = tuple(out_shape)
         self._bits = bits
         self._events = events
-        self._stats = stats
         self.device_ms = None
 
     @span("ukbb.engine.wait")
@@ -202,13 +204,58 @@ class PendingSegmentation:
             start, end = self._events
             end.synchronize()
             self.device_ms = start.elapsed_time(end)
-        if self._stats is not None:
-            self._stats.record_d2h(self._packed.numel())
         n = int(np.prod(self._shape))
         # one native pass through a per-byte table (the JAX engine's);
         # the numpy unpack builds a (bytes, 8 / bits) temporary
         return native.unpack_bits(self._packed.numpy(), self._bits,
                                   n).reshape(self._shape, order="F")
+
+
+# the host dtypes a cine goes up in; uint16 and wider types go up as
+# float32 (exact for 16-bit values), as the JAX engines ship them
+_HOST_DTYPES = (np.float32, np.int16, np.uint8, np.int8, np.int32)
+
+
+def upload_cine(image: np.ndarray, device, start=None) -> torch.Tensor:
+    """The up-leg of a raw (X, Y, Z, T) cine: its transpose (T, Z, Y, X)
+    as a contiguous tensor on ``device``, in the cine's own dtype when
+    that is one of ``_HOST_DTYPES``, else float32.  For a Fortran-ordered
+    NIfTI cine the transpose is the contiguous view, so the host copies
+    nothing.  ``start``, a CUDA event, is recorded just before the
+    upload."""
+    image = np.asarray(image)
+    if image.dtype not in _HOST_DTYPES:
+        image = image.astype(np.float32)
+    # the view may be read-only (NIfTI bytes); nothing writes to it
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable")
+        host = torch.from_numpy(np.ascontiguousarray(image.T))
+    if start is not None:
+        start.record()
+    return host.to(device)
+
+
+def dispatch_cine(image: np.ndarray, device: torch.device, bits: int,
+                  run) -> PendingSegmentation:
+    """One cine through the device, not waited for: the upload
+    (:func:`upload_cine`), ``run`` (the engine's programs, the uploaded
+    (T, Z, Y, X) cine -> its labels packed ``bits`` to a field in the
+    NIfTI file's voxel order) and, on the card, a non-blocking copy of
+    the packed labels into pinned host memory, bracketed by two CUDA
+    events.  The upload stays outside the programs (a pageable copy)."""
+    events = None
+    if device.type == "cuda":
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    packed = run(upload_cine(image, device,
+                             start=None if events is None else events[0]))
+    if events is not None:
+        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        events[1].record()
+    else:
+        host = packed
+    return PendingSegmentation(host, np.shape(image), bits, events)
 
 
 def pad_stack_to_multiple(stack: np.ndarray, n: int):
@@ -224,9 +271,6 @@ def pad_to_factor(X: int, Y: int, factor: int = 16):
     :func:`~ukbb_cardiac_tpu_torch.ops.crop.pad_to_multiple`."""
     x_pre, x_post, y_pre, y_post = pad_to_multiple(X, Y, factor)
     return (x_pre, x_post), (y_pre, y_post)
-
-
-_HOST_DTYPES = (np.float32, np.int16, np.uint8, np.int8, np.int32)
 
 
 def _chunk_forward(model: SegmentationModel, want_prob: bool,
@@ -305,9 +349,6 @@ class InferenceEngine:
         self.chunk = chunk
         self.pad_factor = pad_factor
         self.device = model.device
-        # the adaptive packed up-leg (infer/transfer.py)
-        self._bw = transfer.BandwidthTracker()
-        self._stats = transfer.TransferStats()
         # this engine's programs; nothing in them refers back to the
         # engine, so they go with it
         self._programs = programs.ProgramCache(
@@ -349,10 +390,6 @@ class InferenceEngine:
             raise ValueError(f"a {X} x {Y} matrix does not fit the model's "
                              f"{grid} x {grid} grid")
         return pad_to_size(X, Y, grid)
-
-    def _pack_bits(self) -> int:
-        n = self.model.n_class
-        return 2 if n <= 4 else (4 if n <= 16 else 8)
 
     def _labels(self, x: torch.Tensor, chunk: int, want_prob: bool = False):
         """(N, X, Y, C) padded float32 slices, N a multiple of ``chunk`` ->
@@ -442,46 +479,24 @@ class InferenceEngine:
         without waiting for it."""
         if rescale not in ("percentile", "zscore", "none"):
             raise ValueError(f"unknown rescale {rescale!r}")
-        image = np.asarray(image)
-        if image.dtype not in _HOST_DTYPES:
-            # uint16 and wider types go up as float32 (exact for 16-bit
-            # values), as the JAX engine ships them
-            image = image.astype(np.float32)
-        X, Y, Z, T = image.shape
+        X, Y, Z, T = np.shape(image)
         N = T * Z
         pads = self.pads(X, Y)
         chunk = self._chunk(N)
-        bits = self._pack_bits()
-        on_card = self.device.type == "cuda"
-        events = None
-        if on_card:
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
+        bits = label_bits(self.model.n_class)
 
-        # (T, Z, Y, X): the contiguous view of a Fortran-ordered NIfTI
-        # cine, raw or rebuilt from the packed buffer; the device span
-        # starts at its upload, which stays outside the programs (a
-        # pageable copy, and the bandwidth sample)
-        cine = transfer.upload_cine(image, self.device, self._bw,
-                                    self._stats,
-                                    start=events[0] if on_card else None)
-        (slices,) = self._programs.run(
-            ("prep", rescale), functools.partial(_prep_cine, rescale, pads,
-                                                 -N % chunk), cine)
-        (preds,) = self._labels(slices, chunk)
-        (packed,) = self._programs.run(
-            ("pack", X, Y, Z, T),
-            functools.partial(_pack_cine, (X, Y, Z, T), pads, bits), preds)
+        def run(cine):
+            (slices,) = self._programs.run(
+                ("prep", rescale), functools.partial(
+                    _prep_cine, rescale, pads, -N % chunk), cine)
+            (preds,) = self._labels(slices, chunk)
+            (packed,) = self._programs.run(
+                ("pack", X, Y, Z, T),
+                functools.partial(_pack_cine, (X, Y, Z, T), pads, bits),
+                preds)
+            return packed
 
-        if on_card:
-            host = torch.empty(packed.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            events[1].record()
-        else:
-            host = packed
-        return PendingSegmentation(host, (X, Y, Z, T), bits, events,
-                                   stats=self._stats)
+        return dispatch_cine(image, self.device, bits, run)
 
     def make_sharded_forward(self, mesh, axis: str = "data"):
         """A slice forward with the batch split over ``axis`` of ``mesh``:

@@ -1,17 +1,16 @@
 """The port's native host ops: ``native/hostops.cc``, bound with ctypes.
 
-A copy of ``ukbb_cardiac_tpu/native/__init__.py``: the DICOM reader's
+A copy of ``ukbb_cardiac_tpu/native/__init__.py`` without its up-leg
+packer: the DICOM reader's
 :func:`dicom_scan`, :func:`jpeg_sof3_decode` and :func:`jpegls_decode`;
 the connected-component passes on 2D masks that ``ops/cc.py`` routes
 through (:func:`largest_cc_2d`, :func:`count_significant_cc_2d`,
 :func:`remove_small_cc_2d`), :func:`label_areas_per_frame`, and
 :func:`count_significant_cc_frames`, the aortic QC's one pass over a
-cine's frames; the transfer packers (:func:`unpack_bits` for the
-engines' label readback,
-:func:`pack_lo_hi_i16` / :func:`pack_lo_hi_i16_into` for the packed
-up-leg of ``infer/transfer.py``).  The library is built with ``g++ -O3 -shared
--fPIC`` (not ``-march=native``: a library built on one host and loaded
-on another CPU would fault at call time) at first use, into
+cine's frames; and :func:`unpack_bits`, the engines' label readback.
+The library is built with ``g++ -O3 -shared -fPIC`` (not
+``-march=native``: a library built on one host and loaded on another
+CPU would fault at call time) at first use, into
 ``build/native/`` at the root of the checkout (listed in
 ``.gitignore``).  Its file name carries a digest of the source and
 flags, so an edited source is rebuilt.  One thread builds under a lock;
@@ -21,7 +20,7 @@ target atomically.  Nothing here runs at import time.
 A build that fails raises, with the compiler's output: there is no
 pure-Python fallback for a missing toolchain (the JAX package's
 "unavailable" returns are not copied).  The numpy and scipy versions of
-the CC passes and the packers stay beside their callers as the plain
+the CC passes and the unpack stay beside their callers as the plain
 versions the tests hold these to.  A stream the native code
 declines (``dicom_scan`` returns None; a JPEG decoder declines an image
 larger than its working buffer) still goes to the Python decoder, as in
@@ -108,8 +107,6 @@ def get_lib() -> ctypes.CDLL:
                 np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"), i64p]
             lib.unpack_bits.restype = None
             lib.unpack_bits.argtypes = [i8p, i64, i32, i8p, i64]
-            lib.pack_lo_hi_i16.restype = None
-            lib.pack_lo_hi_i16.argtypes = [i16p, i64, i32, i8p, i8p]
             u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
             i32_ref = ctypes.POINTER(ctypes.c_int32)
             lib.dicom_scan.restype = ctypes.c_int64
@@ -285,32 +282,3 @@ def unpack_bits(packed, bits: int, n: int) -> np.ndarray:
     get_lib().unpack_bits(packed, np.int64(packed.size), np.int32(bits),
                           out, np.int64(n))
     return out
-
-
-def pack_lo_hi_i16(piece, hi_bits: int):
-    """One-pass plane split of a non-negative int16 array (values below
-    2^(8 + hi_bits)): (lo uint8, hi uint8 packed ``hi_bits`` a value, low
-    field first) — the up-leg's pack (``infer/transfer.py``)."""
-    _check_bits(hi_bits)
-    piece = np.ascontiguousarray(piece, dtype=np.int16).reshape(-1)
-    lo = np.empty(piece.size, dtype=np.uint8)
-    hi = np.empty(-(-piece.size * hi_bits // 8), dtype=np.uint8)
-    pack_lo_hi_i16_into(piece, hi_bits, lo, hi)
-    return lo, hi
-
-
-def pack_lo_hi_i16_into(piece, hi_bits: int, lo_out: np.ndarray,
-                        hi_out: np.ndarray) -> None:
-    """:func:`pack_lo_hi_i16` into caller-provided contiguous uint8
-    slices (of the one transfer buffer): ``lo_out`` holds ``piece.size``
-    bytes, ``hi_out`` at least ``ceil(size * hi_bits / 8)``."""
-    _check_bits(hi_bits)
-    piece = np.ascontiguousarray(piece, dtype=np.int16).reshape(-1)
-    n = piece.size
-    if (lo_out.dtype != np.uint8 or hi_out.dtype != np.uint8
-            or not lo_out.flags.c_contiguous
-            or not hi_out.flags.c_contiguous
-            or lo_out.size < n or hi_out.size < (n * hi_bits + 7) // 8):
-        raise ValueError("pack_lo_hi_i16_into: bad output buffers")
-    get_lib().pack_lo_hi_i16(piece, np.int64(n), np.int32(hi_bits),
-                             lo_out, hi_out)

@@ -1,7 +1,8 @@
 // Native host-side ops of ukbb_cardiac_tpu_torch: a copy of
 // ukbb_cardiac_tpu/native/hostops.cc (the port imports nothing of the JAX
-// package, so it keeps its own), with one section more:
-// count_significant_cc_frames, the aortic QC's pass over a cine's frames.
+// package, so it keeps its own), with one section more,
+// count_significant_cc_frames, the aortic QC's pass over a cine's frames,
+// and without the JAX package's up-leg packer.
 //
 // The port binds every entry point through ctypes (native/__init__.py),
 // which builds this file with g++ at first use: dicom_scan (the DICOM
@@ -9,9 +10,8 @@
 // (JPEG lossless, SOF3) and jpegls_decode (JPEG-LS) for ingestion; the
 // connected-component passes over cc_label_2d (largest_cc_2d,
 // count_significant_cc_2d, remove_small_cc_2d) for the 2D masks of
-// ops/cc.py, and label_areas_per_frame; the transfer packers (pack_lo_hi_i16 for
-// the packed up-leg of infer/transfer.py, unpack_bits for the engines'
-// label readback).
+// ops/cc.py, and label_areas_per_frame; unpack_bits for the engines' label
+// readback.
 
 #include <cstdint>
 #include <cstring>
@@ -941,34 +941,8 @@ int32_t jpegls_decode(const uint8_t* data, int64_t n, uint16_t* out,
 }
 
 // ---------------------------------------------------------------------------
-// Bit-plane pack/unpack for the deploy engines' transfer paths.
+// Bit-field unpack for the deploy engines' label readback.
 // ---------------------------------------------------------------------------
-
-// Plane-split pack for the adaptive H2D transfer (infer/transfer.py):
-// one pass over an int16 piece produces the low-byte plane and the
-// hi_bits-wide high plane packed 8/hi_bits values per byte.  The numpy
-// path pays an astype + a shift + a (n/per, per) reshape + per-1
-// shift-or passes; this writes both outputs once.  n need not be a
-// multiple of 8/hi_bits (the tail high-byte is zero-padded).
-void pack_lo_hi_i16(const int16_t* in, int64_t n, int32_t hi_bits,
-                    uint8_t* lo, uint8_t* hi_packed) {
-  const int32_t per = 8 / hi_bits;
-  const int64_t full = n / per;
-  for (int64_t i = 0; i < n; ++i) lo[i] = (uint8_t)(in[i] & 0xFF);
-  for (int64_t i = 0; i < full; ++i) {
-    const int16_t* p = in + i * per;
-    uint8_t b = 0;
-    for (int32_t j = 0; j < per; ++j)
-      b |= (uint8_t)(((uint16_t)p[j] >> 8) << (hi_bits * j));
-    hi_packed[i] = b;
-  }
-  if (full * per < n) {
-    uint8_t b = 0;
-    for (int64_t o = full * per; o < n; ++o)
-      b |= (uint8_t)(((uint16_t)in[o] >> 8) << (hi_bits * (o % per)));
-    hi_packed[full] = b;
-  }
-}
 
 // Unpack `bits`-wide fields (bits in {1,2,4}) from n_bytes packed bytes
 // into n uint8 values, low field first — the exact inverse of the

@@ -11,9 +11,9 @@ and, in full mode, the long-axis chain and the aortic stage after it
     → aortic deploy → aortic areas
 
 with subjects processed by a thread pool (``parallel/fleet.py``), one
-worker by default: on one H100 three workers ran slower than one, the
-strain stages being bound by the host's launches (PERF.md section 5).
-Every worker issues its work on the default stream.  The per-subject
+worker by default: the count every benchmark cell runs (PERF.md section
+4); more workers have no cell yet (ROADMAP.md C2, F1).  Every worker
+issues its work on the default stream.  The per-subject
 files and the aggregate CSVs are the reference CLIs'.
 
 Each subject runs inside the profiler span ``ukbb.subject`` and each
